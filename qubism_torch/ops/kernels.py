@@ -1,0 +1,315 @@
+"""The four state-vector kernels of the OpenQASM file path.
+
+Each kernel has three parts here:
+
+* a **wrapper** (``gate``, ``diag``, ``lane``, ``layer1q``) that updates a
+  state tensor in place. On a CUDA tensor it launches the hand-written
+  Hopper kernel from ``qubism_torch/csrc`` (built by :mod:`.build`) or
+  raises; on a CPU tensor it runs the plain version. Nothing else selects
+  between the two: no fallback, no size threshold.
+* a **plain version** (``*_plain``) of the same function in torch ops, on
+  any device. The CPU tests use it, and ``chip_smoke.py`` holds each kernel
+  against it on the card.
+* a **launch counter**, ``launches[name]``, incremented where the kernel is
+  launched and nowhere else.
+
+Every wrapper takes the state (complex64, contiguous, length 2^n), its
+operands, and n, and returns the state.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .apply import _COL, as_operand, target_view
+
+#: kernel launches per wrapper since the last :func:`reset_launches`
+launches = {"gate": 0, "diag": 0, "lane": 0, "layer1q": 0}
+
+#: widest diagonal factor held as a table (2^7 entries: the widest factor
+#: fusion emits, a pure-lane union). Wider factors are split exactly into
+#: (mask, phase) pairs by :func:`_split_factor_phases`.
+_TABLE_BITS_MAX = 7
+#: per-pass budgets of the diag kernel's shared memory (entries, factors):
+#: 4096 * 8 B of tables + 64 descriptors stay under the 48 KB a block gets
+#: without opting in
+_DIAG_PASS_ENTRIES = 4096
+_DIAG_PASS_FACTORS = 64
+#: int32 words per diag factor descriptor (kDescWords in csrc/diag.cu): k,
+#: table offset, mask lo, mask hi, then up to 8 bit positions of its targets
+#: (MSB of the table index first)
+_DESC_WORDS = 12
+
+_LAYER1Q_MAX = 6
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+def _check_state(state: torch.Tensor, n: int):
+    if state.dtype != torch.complex64 or not state.is_contiguous() or state.numel() != (1 << n):
+        raise ValueError(
+            f"state must be a contiguous complex64 tensor of 2^{n} elements, got "
+            f"{state.dtype} {tuple(state.shape)} contiguous={state.is_contiguous()}")
+
+
+def _launch(state: torch.Tensor, name: str, call):
+    """Run ``call(lib, device index, stream)`` for a CUDA state and count
+    the launch."""
+    from . import build
+
+    if state.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for a state on {state.device}")
+    lib = build.library()
+    dev = state.device.index if state.device.index is not None else torch.cuda.current_device()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    rc = call(lib, dev, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.qk_error_string(rc).decode()} ({rc})")
+    launches[name] += 1
+    return state
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _host(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _positions(targets, n: int) -> np.ndarray:
+    """Bit position of each target in the amplitude index (qubit q = bit
+    n-1-q), in the given order."""
+    return np.array([n - 1 - t for t in targets], dtype=np.int64)
+
+
+# ---------------------------------------------------------------------------
+# K1: dense gate on <= 4 targets
+# ---------------------------------------------------------------------------
+
+
+def gate_plain(state: torch.Tensor, u, targets: tuple[int, ...], n: int) -> torch.Tensor:
+    """y = U x on the sorted ``targets`` (targets[0] = MSB of U's index):
+    the target axes are moved last and contracted with one matmul."""
+    k = len(targets)
+    dims, axes = target_view(n, targets)
+    rest = [a for a in range(len(dims)) if a not in axes]
+    perm = rest + axes
+    x = state.view(dims).permute(perm)
+    y = x.reshape(-1, 1 << k) @ as_operand(u, state).T
+    inv = [perm.index(a) for a in range(len(dims))]
+    state.view(dims).copy_(y.view([dims[a] for a in perm]).permute(inv))
+    return state
+
+
+def gate(state: torch.Tensor, u, targets: tuple[int, ...], n: int) -> torch.Tensor:
+    """Dense 2^k x 2^k complex gate, 1 <= k <= 4, on sorted ``targets``,
+    in place."""
+    k = len(targets)
+    if not 1 <= k <= 4 or list(targets) != sorted(set(targets)):
+        raise ValueError(f"gate: targets {targets} must be 1..4 sorted distinct qubits")
+    _check_state(state, n)
+    if state.device.type == "cpu":
+        return gate_plain(state, u, targets, n)
+    coef = np.ascontiguousarray(np.asarray(u, dtype=np.complex64))
+    if coef.shape != (1 << k, 1 << k):
+        raise ValueError(f"gate: matrix shape {coef.shape} != {(1 << k, 1 << k)}")
+    pos = _positions(targets, n)
+    return _launch(state, "gate", lambda lib, d, s: lib.qk_gate(
+        _ptr(state), n, k, _host(pos), _host(coef), d, s))
+
+
+# ---------------------------------------------------------------------------
+# K4: a layer of disjoint 1q gates
+# ---------------------------------------------------------------------------
+
+
+def layer1q_plain(state: torch.Tensor, gates, n: int) -> torch.Tensor:
+    """The gates of ``gates`` = ((u (2,2), q), ...) one after another."""
+    for u, q in gates:
+        gate_plain(state, u, (q,), n)
+    return state
+
+
+def layer1q(state: torch.Tensor, gates, n: int) -> torch.Tensor:
+    """m <= 6 single-qubit gates on distinct qubits in one pass, in place."""
+    m = len(gates)
+    qs = [int(q) for _, q in gates]
+    if not 1 <= m <= _LAYER1Q_MAX or len(set(qs)) != m:
+        raise ValueError(f"layer1q: need 1..{_LAYER1Q_MAX} distinct qubits, got {qs}")
+    _check_state(state, n)
+    if state.device.type == "cpu":
+        return layer1q_plain(state, gates, n)
+    coef = np.ascontiguousarray(
+        np.stack([np.asarray(u, dtype=np.complex64).reshape(2, 2) for u, _ in gates]))
+    pos = _positions(qs, n)
+    return _launch(state, "layer1q", lambda lib, d, s: lib.qk_layer1q(
+        _ptr(state), n, m, _host(pos), _host(coef), d, s))
+
+
+# ---------------------------------------------------------------------------
+# K3: dense gate over the lane block (the last 7 qubits)
+# ---------------------------------------------------------------------------
+
+
+def lane_plain(state: torch.Tensor, u, n: int) -> torch.Tensor:
+    """Every row of 2^min(n,7) amplitudes times U^T."""
+    lanes = 1 << min(n, _COL)
+    x = state.view(-1, lanes)
+    x.copy_(x @ as_operand(u, state).T)
+    return state
+
+
+def lane(state: torch.Tensor, u, n: int) -> torch.Tensor:
+    """A gate expanded over the whole lane block (u: (L, L) complex with
+    L = 2^min(n,7), see apply.expand_for_view), in place."""
+    lanes = 1 << min(n, _COL)
+    if np.shape(u) != (lanes, lanes):
+        raise ValueError(f"lane: matrix shape {np.shape(u)} != {(lanes, lanes)}")
+    _check_state(state, n)
+    if state.device.type == "cpu":
+        return lane_plain(state, u, n)
+    # the kernel reads U^T so that a warp's lanes read consecutive columns
+    ut = as_operand(np.asarray(u).T, state)
+    return _launch(state, "lane", lambda lib, d, s: lib.qk_lane(
+        _ptr(state), n, _ptr(ut), d, s))
+
+
+# ---------------------------------------------------------------------------
+# K2: a layer of commuting diagonal factors
+# ---------------------------------------------------------------------------
+
+
+def diag_plain(state: torch.Tensor, factors, n: int) -> torch.Tensor:
+    """Multiply by each factor (d (2^k,), targets) in turn: a broadcast
+    multiply over a minimal-rank view of the target axes."""
+    for d, targets in factors:
+        d = np.asarray(d, dtype=np.complex128)
+        k = len(targets)
+        order = sorted(range(k), key=lambda j: targets[j])
+        srt = tuple(targets[j] for j in order)
+        table = d.reshape((2,) * k).transpose(order)
+        dims, axes = target_view(n, srt)
+        shape = [1] * len(dims)
+        for a in axes:
+            shape[a] = 2
+        state.view(dims).mul_(as_operand(table, state).reshape(shape))
+    return state
+
+
+def _split_factor_phases(f):
+    """Exact multiplicative split of one diagonal factor into
+    multi-controlled-phase factors.
+
+    Writes d[bits] = exp(L[bits]) and expands L multilinearly over the
+    bit lattice (Moebius transform): L[b] = sum_{S subseteq b} c_S, so
+    d = prod_S cphase(exp(c_S) on targets S). Exact for any zero-free
+    diagonal (unitary diagonals are unit-modulus; branch cuts cancel in
+    exp). Returns None when d has zero entries (log undefined)."""
+    d, targets = f
+    k = len(targets)
+    d = np.asarray(d, dtype=np.complex128).ravel()
+    if np.any(np.abs(d) < 1e-300):
+        return None
+    c = np.log(d.copy())
+    for j in range(k):
+        bit = 1 << j
+        hi = (np.arange(1 << k) & bit).astype(bool)
+        c[hi] -= c[np.arange(1 << k)[hi] ^ bit]
+    # array index bit (k-1-j) corresponds to targets[j] (MSB-first)
+    out = []
+    for s in range(1, 1 << k):
+        if abs(c[s]) < 1e-14:
+            continue
+        sub = tuple(targets[j] for j in range(k) if s & (1 << (k - 1 - j)))
+        m = len(sub)
+        ds = np.ones(1 << m, dtype=np.complex128)
+        ds[-1] = np.exp(c[s])
+        out.append((ds, sub))
+    glob = np.exp(c[0])
+    if abs(glob - 1.0) > 1e-14:
+        if out:
+            d0, t0 = out[0]
+            out[0] = (d0 * glob, t0)
+        else:
+            out.append((np.array([glob, glob]), (targets[0],)))
+    return out
+
+
+def _mask_factors(f, n: int):
+    """A factor wider than _TABLE_BITS_MAX as (mask, phase) pairs: the
+    amplitude is multiplied by ``phase`` where every bit of ``mask`` is set
+    (mask 0 = every amplitude)."""
+    parts = _split_factor_phases(f)
+    if parts is None:
+        raise ValueError(f"diag: factor on {f[1]} has a zero entry; it cannot "
+                         f"be split into phases")
+    out = []
+    for ds, sub in parts:
+        mask = 0
+        for t in sub:
+            mask |= 1 << (n - 1 - t)
+        g = ds[0]
+        if g != 1:  # the global phase folded into the first part
+            out.append((0, g))
+        out.append((mask, ds[-1] / g))
+    return out
+
+
+def _diag_passes(factors, n: int):
+    """Host side of K2: [(tables complex64 (T,), desc int32 (F, W))] per
+    kernel pass, each within the shared-memory budget."""
+    items = []  # (k, table (2^k,), positions) or (0, [phase], mask)
+    for d, targets in factors:
+        d = np.asarray(d, dtype=np.complex128).ravel()
+        if len(targets) > _TABLE_BITS_MAX:
+            items.extend((0, np.array([p]), m) for m, p in _mask_factors((d, targets), n))
+        else:
+            items.append((len(targets), d, _positions(targets, n)))
+    passes, cur, entries = [], [], 0
+    for it in items:
+        size = len(it[1])
+        if cur and (entries + size > _DIAG_PASS_ENTRIES or len(cur) == _DIAG_PASS_FACTORS):
+            passes.append(cur)
+            cur, entries = [], 0
+        cur.append(it)
+        entries += size
+    if cur:
+        passes.append(cur)
+    out = []
+    for group in passes:
+        tables = np.concatenate([t for _, t, _ in group]).astype(np.complex64)
+        desc = np.zeros((len(group), _DESC_WORDS), dtype=np.int32)
+        off = 0
+        for f, (k, table, where) in enumerate(group):
+            desc[f, 0] = k
+            desc[f, 1] = off
+            if k:
+                desc[f, 4:4 + k] = where
+            else:
+                desc[f, 2:4] = np.array([where & 0xFFFFFFFF, where >> 32],
+                                        dtype=np.uint32).view(np.int32)
+            off += len(table)
+        out.append((tables, desc))
+    return out
+
+
+def diag(state: torch.Tensor, factors, n: int) -> torch.Tensor:
+    """The product of commuting diagonal factors ((d (2^k,), targets), ...)
+    in one pass per shared-memory budget, in place."""
+    _check_state(state, n)
+    if state.device.type == "cpu":
+        return diag_plain(state, factors, n)
+    for tables, desc in _diag_passes(factors, n):
+        tab = torch.from_numpy(tables).to(state.device)
+        dsc = torch.from_numpy(desc).to(state.device)
+        _launch(state, "diag", lambda lib, d, s: lib.qk_diag(
+            _ptr(state), n, _ptr(tab), tab.numel(), _ptr(dsc), dsc.shape[0], d, s))
+    return state
