@@ -2,9 +2,10 @@
 
 Counterpart of reference app/Main.hs: ``python -m qubism_torch file.qasm``
 evaluates a file and prints "Done.". Ported flags: ``--seed``, ``--shots``,
-``--dump-state``, ``--reference-compat``, ``-I``, ``--include-base`` and
-``--verbose``. Every other flag of the JAX package's CLI, and the REPL (no
-file), exit with code 2 and "not ported yet".
+``--dump-state``, ``--compile``, ``--fuse-width``, ``--reference-compat``,
+``-I``, ``--include-base`` and ``--verbose``. Every other flag of the JAX
+package's CLI (``--mesh``, ``--observable``, ``--backend``, ...), and the
+REPL (no file), exit with code 2 and "not ported yet".
 """
 
 from __future__ import annotations
@@ -29,6 +30,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="sample the final state this many times and print counts")
     p.add_argument("--dump-state", action="store_true",
                    help="print the final internal state (like a trailing :dump)")
+    p.add_argument("--compile", action="store_true", dest="compile_mode",
+                   help="run the program as fused segments of the compiled "
+                        "engine (registers are laid out in one state vector "
+                        "up front)")
+    p.add_argument("--fuse-width", type=int, default=5, metavar="K",
+                   help="max qubits per fused dense block in --compile mode "
+                        "(default 5; the kernels cap it at 4)")
     p.add_argument("--reference-compat", action="store_true",
                    help="replicate the reference's numerical quirks "
                         "(buggy u3, sqrt-Born sampling, truncated pi)")
@@ -61,11 +69,15 @@ def _apply_flags(args):
 
 def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
               shots: int | None = None, out=None, source: str | None = None,
-              inspect=None) -> int:
+              inspect=None, compile_mode: bool = False, fuse_width: int = 5) -> int:
     """Evaluate a file (reference ``evalFile``, Main.hs:23-32). Returns the
     exit code. ``source``, when given, is parsed as the text of ``path``
     (includes resolve relative to it) instead of reading the file;
-    ``inspect`` is called with the final :class:`ProgState` before "Done."."""
+    ``inspect`` is called with the final :class:`ProgState` before "Done."
+    (in compile mode, one state vector holding every register).
+    ``compile_mode`` runs the program through
+    :class:`~qubism_torch.run.compiler.CompiledProgram` with dense blocks of
+    at most ``fuse_width`` qubits."""
     out = out or sys.stdout
     if source is None:
         try:
@@ -87,9 +99,18 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
         print(f"qubism: {e}", file=out)
         return 2
     try:
-        ps = run_program(ast, seed=seed)
-        if dump_state:
-            out.write(ps.pretty())
+        if compile_mode:
+            from .run.compiler import CompiledProgram
+
+            prog = CompiledProgram(ast, max_block=fuse_width)
+            state, cregs, gen = prog.run(seed=seed, dump_writer=out.write)
+            if dump_state:
+                out.write(prog._pretty(state, cregs))
+            ps = prog.prog_state(state, cregs, gen)
+        else:
+            ps = run_program(ast, seed=seed)
+            if dump_state:
+                out.write(ps.pretty())
         if shots:
             _print_shot_counts(ps, shots, out)
     except QasmRuntimeError as e:
@@ -122,7 +143,8 @@ def main(argv=None) -> int:
         return 2
     _apply_flags(args)
     return eval_file(args.file, seed=args.seed, dump_state=args.dump_state,
-                     shots=args.shots)
+                     shots=args.shots, compile_mode=args.compile_mode,
+                     fuse_width=args.fuse_width)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,11 @@ tensor in place; randomness is an explicit ``torch.Generator``.
 
 Index convention is big-endian (qubit 0 = most significant index bit),
 matching the reference's basis labeling (StateVec.hs:65-67).
+
+Unlike the JAX package's immutable states, :meth:`collapse`,
+:meth:`measure_qubit` and :meth:`measure` update the tensor in place (the
+DSL's :class:`~qubism_torch.session.Session` owns a copy of its state, and
+``Gate.__call__`` returns a new state).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 from ..config import TOLERANCE
 from ..ops import apply as _apply
 from ..ops import measure as _measure
+from .creg import CReg
 
 
 class StateVec:
@@ -36,14 +42,91 @@ class StateVec:
         """|0...0> on n qubits."""
         return cls(n, _apply.zero_state(n))
 
+    @classmethod
+    def qubit(cls, alpha=1.0, beta=0.0) -> "StateVec":
+        """A single qubit alpha|0> + beta|1> (normalized)."""
+        return cls.from_amplitudes(np.array([alpha, beta], dtype=np.complex128)).normalize()
+
+    @classmethod
+    def from_amplitudes(cls, amps) -> "StateVec":
+        """A state from a host amplitude vector of length 2^n, on
+        ``config.device``."""
+        amps = np.asarray(amps)
+        n = int(amps.shape[0]).bit_length() - 1
+        if amps.ndim != 1 or (1 << n) != amps.shape[0]:
+            raise ValueError(f"length {amps.shape} is not a power of two")
+        z = np.ascontiguousarray(amps, dtype=np.complex64)
+        return cls(n, torch.from_numpy(z).to(_apply.device()))
+
     @property
     def amps(self) -> np.ndarray:
         """Host-side numpy complex128 amplitude vector."""
         return _apply.complex_from_state(self.state)
 
+    @property
+    def dimension(self) -> int:
+        """Number of qubits (reference ``dimension``, StateVec.hs:74-75)."""
+        return self.n
+
+    def normalize(self) -> "StateVec":
+        return StateVec(self.n, _apply.normalize(self.state))
+
     def tensor(self, other: "StateVec") -> "StateVec":
         """self ⊗ other: self's qubits become the most significant bits."""
         return StateVec(self.n + other.n, _apply.tensor(self.state, other.state))
+
+    def inner(self, other: "StateVec") -> complex:
+        """<self|other> (conjugate-linear in self)."""
+        return complex(torch.vdot(self.state, other.state.to(self.state.device)).item())
+
+    def norm(self) -> float:
+        return float(torch.linalg.vector_norm(self.state))
+
+    def adjoint(self) -> "StateVec":
+        """Elementwise conjugate, the bra of this ket (reference ``adjoint``,
+        src/Qubism/StateVec.hs:94-95)."""
+        return StateVec(self.n, self.state.conj_physical())
+
+    # -- amplitude queries -----------------------------------------------------
+
+    def _basis_index(self, bits) -> int:
+        """Basis index from an int, a '0110' string, or a bit sequence
+        (qubit 0 first = most significant index bit, matching Show)."""
+        if isinstance(bits, str):
+            if len(bits) != self.n or set(bits) - {"0", "1"}:
+                raise ValueError(f"bitstring {bits!r} is not {self.n} of 0/1")
+            idx = int(bits, 2)
+        elif isinstance(bits, (int, np.integer)):
+            idx = int(bits)
+        else:
+            seq = list(bits)
+            if len(seq) != self.n:
+                raise ValueError(f"expected {self.n} bits, got {len(seq)}")
+            idx = 0
+            for b in seq:
+                idx = (idx << 1) | (int(b) & 1)
+        if not 0 <= idx < (1 << self.n):
+            raise ValueError(f"basis index {idx} out of range for n={self.n}")
+        return idx
+
+    def amplitude(self, bits) -> complex:
+        """One amplitude <b|psi>: a scalar read, not a 2^n transfer."""
+        return complex(self.state[self._basis_index(bits)].item())
+
+    def probability(self, bits) -> float:
+        """Born probability |<b|psi>|^2 of one basis state."""
+        a = self.amplitude(bits)
+        return a.real * a.real + a.imag * a.imag
+
+    def probs(self) -> np.ndarray:
+        """The full Born distribution as a host (2^n,) float64 array;
+        refused past n = 26 (a multi-GiB host transfer)."""
+        if self.n > 26:
+            raise ValueError(
+                f"probs() materializes 2^{self.n} host floats; sample() or "
+                f"probability(bits) scale to large n")
+        a = self.amps
+        return a.real * a.real + a.imag * a.imag
 
     def prob_one(self, i: int) -> float:
         return _measure.prob_one(self.state, i, self.n)
@@ -57,6 +140,11 @@ class StateVec:
     def measure_qubit(self, i: int, gen: torch.Generator | None) -> int:
         """Sample qubit i and collapse in place. Returns the bit."""
         return _measure.measure_qubit(self.state, gen, i, self.n)
+
+    def measure(self, gen: torch.Generator | None) -> CReg:
+        """Measure every qubit in index order with collapse-as-you-go
+        semantics (reference ``measure``, StateVec.hs:133-137), in place."""
+        return CReg.of(_measure.measure_qubits(self.state, gen, tuple(range(self.n)), self.n))
 
     def sample(self, shots: int, gen: torch.Generator | None = None,
                seed: int | None = None) -> dict[str, int]:
@@ -91,3 +179,13 @@ class StateVec:
             ket = format(i, f"0{self.n}b") if self.n else ""
             lines.append(f"{z.real: 6.4f}  + {z.imag: 6.4f}i  |{ket}>")
         return "\n".join(lines) + ("\n" if len(zs) else "")
+
+
+def mk_state_vec(n: int) -> StateVec:
+    """|0...0> on n qubits (reference ``mkStateVec``)."""
+    return StateVec.zero(n)
+
+
+def mk_qubit() -> StateVec:
+    """A |0> qubit (reference ``mkQubit``)."""
+    return StateVec.zero(1)

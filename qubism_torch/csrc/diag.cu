@@ -12,9 +12,11 @@
 // Design: the tables of all factors of the pass (complex64, concatenated)
 // and one descriptor per factor sit in shared memory. A descriptor is
 // W int32 words: k, table offset, mask (lo, hi), then k bit positions, MSB
-// of the table index first. k = 0 marks a (mask, phase) factor, the form a
-// factor wider than 7 qubits takes after the host's exact Moebius split: it
-// multiplies where every bit of the mask is set (mask 0: everywhere). One
+// of the table index first. k = 0 marks a (mask, value, phase) factor, the
+// form a factor wider than 7 qubits takes on the host (one phase per point
+// where it differs from its common value, or else the exact Moebius split):
+// it multiplies where the bits under the mask read the value (words 4, 5;
+// mask 0: everywhere). One
 // thread per amplitude (grid-stride): product of the factors' entries, one
 // complex multiply of the amplitude, one write to the same address.
 #include "common.cuh"
@@ -44,7 +46,8 @@ diag_kernel(float2* __restrict__ s, int64_t size, const float2* __restrict__ tab
         acc = qk::cmul(acc, tab[d[1] + idx]);
       } else {
         const uint64_t mask = uint64_t(uint32_t(d[2])) | (uint64_t(uint32_t(d[3])) << 32);
-        if ((uint64_t(i) & mask) == mask) acc = qk::cmul(acc, tab[d[1]]);
+        const uint64_t value = uint64_t(uint32_t(d[4])) | (uint64_t(uint32_t(d[5])) << 32);
+        if ((uint64_t(i) & mask) == value) acc = qk::cmul(acc, tab[d[1]]);
       }
     }
     s[i] = qk::cmul(s[i], acc);

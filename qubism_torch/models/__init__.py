@@ -1,1 +1,1 @@
-"""Circuit families as OpenQASM text."""
+"""Circuit families: prim streams for the compiled engine and OpenQASM text."""

@@ -23,6 +23,15 @@ from ..config import config
 _COL = 7
 
 
+def canonical_device(dev) -> torch.device:
+    """A torch device with its index filled in (``cuda`` -> ``cuda:<current>``),
+    so that it compares equal to the device of a tensor made on it."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def device() -> torch.device:
     """``config.device`` as a torch device; raises when it names CUDA and
     no CUDA device is present (the port never falls back to the CPU)."""
@@ -31,7 +40,7 @@ def device() -> torch.device:
         raise RuntimeError(
             f"config.device is {config.device!r} but torch.cuda.is_available() "
             f"is False; set QUBISM_TORCH_DEVICE=cpu to run on the CPU")
-    return dev
+    return canonical_device(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -138,27 +147,38 @@ def target_view(n: int, targets: tuple[int, ...]):
 
 
 # ---------------------------------------------------------------------------
-# Plain appliers (no kernel): one gate or diagonal at a time
+# Appliers: one gate or diagonal at a time, through the kernel wrappers
 # ---------------------------------------------------------------------------
 
 
 def apply_gate(state: torch.Tensor, u, targets: tuple[int, ...], n: int) -> torch.Tensor:
     """Apply a k-qubit unitary ``u`` (host complex (2^k, 2^k), targets in
-    any order, targets[0] = MSB) to ``state`` in place; returns ``state``."""
-    from .kernels import gate_plain
+    any order, targets[0] = MSB) to ``state`` in place; returns ``state``.
+
+    Targets that all lie in the lane block go to ``kernels.lane``, other
+    gates on up to 4 targets to ``kernels.gate`` (each launches its kernel
+    on a CUDA state and runs its plain version on a CPU one). A dense gate
+    on more than 4 targets that leaves the lane block has no kernel and runs
+    as ``kernels.gate_plain``, as the JAX package leaves it to XLA."""
+    from . import kernels
 
     un, sorted_targets = _sort_targets(np.asarray(u, dtype=np.complex128),
                                        tuple(int(t) for t in targets))
-    return gate_plain(state, un, sorted_targets, n)
+    b = max(n - _COL, 0)
+    if all(t >= b for t in sorted_targets):
+        return kernels.lane(state, expand_for_view(un, n, sorted_targets), n)
+    if len(sorted_targets) <= 4:
+        return kernels.gate(state, un, sorted_targets, n)
+    return kernels.gate_plain(state, un, sorted_targets, n)
 
 
 def apply_diag(state: torch.Tensor, d, targets: tuple[int, ...], n: int) -> torch.Tensor:
     """Multiply ``state`` in place by the diagonal k-qubit gate whose
-    diagonal is ``d`` (2^k,); returns ``state``."""
-    from .kernels import diag_plain
+    diagonal is ``d`` (2^k,), through ``kernels.diag``; returns ``state``."""
+    from . import kernels
 
-    return diag_plain(state, ((np.asarray(d, dtype=np.complex128),
-                               tuple(int(t) for t in targets)),), n)
+    return kernels.diag(state, ((np.asarray(d, dtype=np.complex128),
+                                 tuple(int(t) for t in targets)),), n)
 
 
 def tensor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``qubism_torch/csrc``.
 
 The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``. Nothing here runs at
-import: :func:`library` builds on first use, into
+with a plain C interface, loaded with ``ctypes``: one ``nvcc -c`` per
+source, all started together, then one link. Nothing here runs at import:
+:func:`library` builds on first use, into
 ``qubism_torch/_build/<hash of the sources and flags>/`` (listed in
 ``.gitignore``), and reuses a library already built from the same sources.
 """
@@ -21,7 +22,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 #: what nvcc printed for the last build (ptxas register/shared-memory lines)
@@ -52,6 +53,24 @@ def library_path() -> Path:
     return _PKG / "_build" / _digest() / "libqubism_kernels.so"
 
 
+def _run_all(cmds) -> str:
+    """Run the commands at once; raise on the first that fails. Returns
+    their output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    logs, failed = [], None
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        logs.append(text)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, text)
+    if failed:
+        cmd, rc, text = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+    return "".join(logs)
+
+
 def build() -> Path:
     """Compile the sources unless a library built from them exists."""
     global build_log
@@ -59,16 +78,15 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *FLAGS, "-o", tmp, *map(str, SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
-    build_log = res.stdout + res.stderr
+    with tempfile.TemporaryDirectory(dir=out.parent) as work:
+        objs = [os.path.join(work, src.stem + ".o") for src in SOURCES]
+        log = _run_all([[_nvcc(), *FLAGS, "-c", "-o", obj, str(src)]
+                        for src, obj in zip(SOURCES, objs)])
+        tmp = os.path.join(work, out.name)
+        log += _run_all([[_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                          "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    build_log = log
     return out
 
 
@@ -84,7 +102,8 @@ def library() -> ctypes.CDLL:
     lib.qk_layer1q.argtypes = [p, i64, i32, p, p, i32, p]
     lib.qk_lane.argtypes = [p, i64, p, i32, p]
     lib.qk_diag.argtypes = [p, i64, p, i64, p, i32, i32, p]
-    for fn in (lib.qk_gate, lib.qk_layer1q, lib.qk_lane, lib.qk_diag):
+    lib.qk_stage.argtypes = [p, i64, i32, p, p, p, i32, i32, p]
+    for fn in (lib.qk_gate, lib.qk_layer1q, lib.qk_lane, lib.qk_diag, lib.qk_stage):
         fn.restype = ctypes.c_int
     lib.qk_error_string.argtypes = [ctypes.c_int]
     lib.qk_error_string.restype = ctypes.c_char_p

@@ -1,25 +1,33 @@
-"""Gate fusion for the interpreter's lazy gate queue.
+"""Gate fusion and the compiled circuit executor.
 
 A run of primitives is lowered into **fused ops**, each applied in one pass
 over the state by one kernel of :mod:`.kernels`:
 
+* **Stage blocks**: a dense 1q gate on a row qubit q followed by a ladder
+  of 2q diagonals (q, j), j > q, whose q = 0 branch is the identity (the
+  QFT stage) is a :class:`StageOp`; runs of stages on adjacent qubits are
+  grouped into :class:`StageBlockOp` passes of up to ``stage_group``
+  stages (the ``stage`` kernel). QASM input never produces them (the
+  interpreter and the compiler queue only U and CX, and qelib1's ``cu1``
+  expands to those); prim streams with real 2q diagonal prims do
+  (``models.circuits.qft_prims``, the DSL's ``controlled(i, phase(l))``).
 * **Dense blocks** (qsim-style): consecutive primitives whose combined
-  target set stays within 4 qubits are multiplied host-side into one
-  2^k x 2^k block (the ``gate`` kernel). Unions whose targets all lie in
-  the lane block (the last 7 qubits) merge at any size: they apply as one
-  expanded lane matrix (the ``lane`` kernel).
+  target set stays within ``max_block`` (<= 4) qubits are multiplied
+  host-side into one 2^k x 2^k block (the ``gate`` kernel). Unions whose
+  targets all lie in the lane block (the last 7 qubits) merge at any size:
+  they apply as one expanded lane matrix (the ``lane`` kernel).
 * **Diagonal layers**: diagonal blocks commute; consecutive ones merge into
   a :class:`DiagLayer` whose factors multiply the state in one pass (the
-  ``diag`` kernel).
+  ``diag`` kernel). A diagonal prim on more than 4 targets (a Grover
+  oracle) becomes a factor as it is, never a dense matrix.
 * **1q layers**: runs of 4 or more disjoint dense 1q gates on qubits above
   the lane block are cut into :class:`Layer1QOp` chunks of at most
   ``_LAYER1Q_MAX`` gates (the ``layer1q`` kernel).
 
-These are the fusion semantics of qubism_tpu/ops/fusion.py with
-``max_block=4, mixed_lane=True``, at every n; what that module sized for
-the TPU (its pass-cost model, axis-slot caps and operand caches) is not
-carried over. The QFT stage prepass and stage blocks are left out: QASM
-input never produces them (the interpreter queues only U and CX).
+These are the fusion semantics of qubism_tpu/ops/fusion.py on its kernel
+path (``max_block <= 4``, ``mixed_lane=True``), at every n; what that
+module sized for the TPU (its pass-cost model, axis-slot caps, virtual
+shards, chunked jits and operand caches) is not carried over.
 """
 
 from __future__ import annotations
@@ -27,12 +35,21 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..core.gates import Prim, is_diagonal
 from . import apply as _apply
 from . import kernels
 
+#: the widest dense block a kernel applies off the lane block
 MAX_BLOCK = 4
+DEFAULT_MAX_BLOCK = 5
+
+#: stages per stage-block pass. A pass costs the same at k = 2 and k = 4
+#: (memory-bound), so 4 halves the QFT's stage passes: QFT-28 took 20.8
+#: device ms at 4 against 28.5 at 2 on an H100 80GB HBM3 at 700 W
+#: (chip_smoke.py prints both; PERF.md)
+STAGE_GROUP = 4
 
 #: gates per 1q-layer pass (each gate is 2 complex MACs per amplitude; at 6
 #: a thread of the layer1q kernel holds 64 amplitudes in registers)
@@ -43,6 +60,32 @@ _LAYER1Q_MAX = kernels._LAYER1Q_MAX
 class DenseOp:
     u: np.ndarray  # (2^k, 2^k) complex128, targets sorted ascending
     targets: tuple[int, ...]
+
+
+@dataclass(frozen=True)
+class StageOp:
+    """A dense 1q gate on row qubit q fused with a controlled-phase ladder
+    sharing q (the QFT stage shape)."""
+
+    u: np.ndarray    # (2, 2) complex
+    q: int
+    factors: tuple   # ((d (4,), (q, j)), ...) with j > q, d[0] = d[1] = 1
+
+    @property
+    def targets(self):
+        return (self.q,)
+
+
+@dataclass(frozen=True)
+class StageBlockOp:
+    """Up to four consecutive stages on adjacent qubits, applied in ONE pass
+    (kernels.stage_block_prepare folds them)."""
+
+    stages: tuple  # ((u (2,2), q, factors), ...), q strictly ascending
+
+    @property
+    def targets(self):
+        return tuple(q for _, q, _ in self.stages)
 
 
 @dataclass(frozen=True)
@@ -69,21 +112,67 @@ def _prim_sorted_dense(p: Prim) -> tuple[np.ndarray, tuple[int, ...]]:
     return _apply._sort_targets(u, p.targets)
 
 
-def _union_ok(union: tuple[int, ...], n: int) -> bool:
+def _prim_sorted_diag(p: Prim) -> DiagLayer:
+    """A diagonal primitive as a one-factor layer with sorted targets."""
+    d = np.asarray(p.u, dtype=np.complex128)
+    order = tuple(sorted(range(len(p.targets)), key=lambda i: p.targets[i]))
+    if order != tuple(range(len(p.targets))):
+        d = d.reshape((2,) * len(p.targets)).transpose(order).reshape(-1)
+    return DiagLayer(((d, tuple(sorted(p.targets))),))
+
+
+def _union_ok(union: tuple[int, ...], n: int, max_block: int) -> bool:
     """Fusion admission by region: pure-lane unions merge at any size (one
-    lane matrix); row and mixed row+lane unions up to MAX_BLOCK targets."""
+    lane matrix); row and mixed row+lane unions up to ``max_block``
+    targets."""
     b = max(n - _apply._COL, 0)
     if all(t >= b for t in union):
         return True
-    return len(union) <= MAX_BLOCK
+    return len(union) <= max_block
 
 
-def _layer1q_prepass(prims, n: int):
+def _stage_prepass(prims, n: int):
+    """Detect [1q dense on row qubit q] + [run of 2q diagonals (q, j), j > q,
+    with an identity q = 0 branch] and fuse each into a StageOp."""
+    b_lane = max(n - _apply._COL, 0)
+    out: list = []
+    prims = list(prims)
+    i = 0
+    while i < len(prims):
+        p = prims[i]
+        if not p.diag and len(p.targets) == 1 and p.targets[0] < b_lane:
+            q = p.targets[0]
+            ladder = []
+            j = i + 1
+            while j < len(prims):
+                nxt = prims[j]
+                if not (nxt.diag and len(nxt.targets) == 2 and q in nxt.targets):
+                    break
+                other = nxt.targets[0] if nxt.targets[1] == q else nxt.targets[1]
+                if other <= q:
+                    break
+                d = np.asarray(nxt.u, dtype=np.complex128)
+                if nxt.targets[0] == other:  # stored (other, q): permute to (q, other)
+                    d = d.reshape(2, 2).T.reshape(-1)
+                if not (d[0] == 1 and d[1] == 1):
+                    break
+                ladder.append((d, (q, other)))
+                j += 1
+            if ladder:
+                out.append(StageOp(np.asarray(p.u, dtype=np.complex128), q, tuple(ladder)))
+                i = j
+                continue
+        out.append(p)
+        i += 1
+    return out
+
+
+def _layer1q_prepass(items, n: int):
     """Group runs of consecutive dense 1q prims on DISTINCT row qubits into
     Layer1QOp passes of at most _LAYER1Q_MAX gates. Disjoint 1q gates
     commute, so a run may be cut anywhere. Runs shorter than 4 stay prims:
     greedy dense fusion handles those at the same cost and can absorb
-    neighboring 2q gates."""
+    neighboring 2q gates. StageOps break runs and pass through."""
     b_lane = max(n - _apply._COL, 0)
     out: list = []
     run: list = []  # [(u, q)]
@@ -100,8 +189,9 @@ def _layer1q_prepass(prims, n: int):
                     out.append(Layer1QOp(tuple(sorted(chunk, key=lambda g: g[1]))))
         run.clear()
 
-    for p in prims:
-        ok = (not p.diag and len(p.targets) == 1 and p.targets[0] < b_lane)
+    for p in items:
+        ok = (isinstance(p, Prim) and not p.diag and len(p.targets) == 1
+              and p.targets[0] < b_lane)
         if not ok:
             flush()
             out.append(p)
@@ -114,9 +204,16 @@ def _layer1q_prepass(prims, n: int):
     return out
 
 
-def fuse(prims, n: int) -> list:
-    """Greedy fusion: prims -> [Layer1QOp | DenseOp | DiagLayer]."""
-    items = _layer1q_prepass(prims, n)
+def fuse(prims, n: int, max_block: int = DEFAULT_MAX_BLOCK,
+         stage_group: int | None = None) -> list:
+    """Greedy fusion: prims -> [StageBlockOp | Layer1QOp | DenseOp |
+    DiagLayer]. ``max_block`` is clamped to 4, the widest dense block the
+    gate kernel takes; ``stage_group`` (1..4) caps the stages per block."""
+    max_block = min(max_block, MAX_BLOCK)
+    stage_group = STAGE_GROUP if stage_group is None else stage_group
+    if not 1 <= stage_group <= 4:
+        raise ValueError(f"stage_group {stage_group}: 1..4 supported")
+    items = _layer1q_prepass(_stage_prepass(prims, n), n)
     blocks: list = []
     cur_u: np.ndarray | None = None
     cur_t: tuple[int, ...] = ()
@@ -128,16 +225,22 @@ def fuse(prims, n: int) -> list:
             cur_u, cur_t = None, ()
 
     for p in items:
-        if isinstance(p, Layer1QOp):
+        if isinstance(p, (StageOp, Layer1QOp)):
             flush()
             blocks.append(p)
+            continue
+        if p.diag and len(p.targets) > 4:
+            # a wide diagonal (a whole-register Grover oracle) goes straight
+            # to a factor: densifying it would build a 2^k x 2^k matrix
+            flush()
+            blocks.append(_prim_sorted_diag(p))
             continue
         u, t = _prim_sorted_dense(p)
         if cur_u is None:
             cur_u, cur_t = u, t
             continue
         union = tuple(sorted(set(cur_t) | set(t)))
-        if _union_ok(union, n):
+        if _union_ok(union, n, max_block):
             a = _apply._expand_np(cur_u, cur_t, union)
             b = _apply._expand_np(u, t, union)
             cur_u, cur_t = b @ a, union  # p applies after the block
@@ -155,20 +258,43 @@ def fuse(prims, n: int) -> list:
             out[-1] = DiagLayer(out[-1].factors + b.factors)
         else:
             out.append(b)
-    return out
+
+    # group runs of consecutive stages on adjacent qubits into blocks of up
+    # to ``stage_group`` (a k-block cuts the QFT's pass count by k)
+    grouped: list = []
+    i = 0
+    while i < len(out):
+        a = out[i]
+        if not isinstance(a, StageOp):
+            grouped.append(a)
+            i += 1
+            continue
+        grp = [a]
+        while len(grp) < stage_group and i + len(grp) < len(out):
+            b = out[i + len(grp)]
+            if not (isinstance(b, StageOp) and b.q == grp[-1].q + 1):
+                break
+            grp.append(b)
+        grouped.append(StageBlockOp(tuple((s.u, s.q, s.factors) for s in grp)))
+        i += len(grp)
+    return grouped
 
 
-def plan(op, n: int):
+def plan(op, n: int, device="cpu"):
     """The kernel for one fused op and its operands: (name, args) with
-    ``getattr(kernels, name)(state, *args, n)`` applying it (and
-    ``name + "_plain"`` naming the plain version)."""
+    ``kernels.KERNEL_FNS[name]`` = (wrapper, plain version), each applying
+    the op as ``fn(state, *args, n)``. The operands the kernel reads from
+    device memory are uploaded to ``device`` here, once."""
+    if isinstance(op, StageBlockOp):
+        return "stage", (kernels.stage_block_prepare(op.stages, n, device),)
     if isinstance(op, DiagLayer):
-        return "diag", (op.factors,)
+        return "diag", (kernels.diag_prepare(op.factors, n, device),)
     if isinstance(op, Layer1QOp):
         return "layer1q", (op.gates,)
     b = max(n - _apply._COL, 0)
     if all(t >= b for t in op.targets):
-        return "lane", (_apply.expand_for_view(op.u, n, op.targets),)
+        return "lane", (kernels.lane_prepare(_apply.expand_for_view(op.u, n, op.targets),
+                                             n, device),)
     if len(op.targets) <= MAX_BLOCK:
         return "gate", (op.u, op.targets)
     raise ValueError(f"no kernel for a dense block on {op.targets} "
@@ -178,7 +304,76 @@ def plan(op, n: int):
 def apply_prims_fused(state, prims, n: int):
     """Apply a run of prims to an n-qubit state in place, one kernel pass
     per fused op. Returns the state."""
-    for op in fuse(list(prims), n):
-        name, args = plan(op, n)
-        getattr(kernels, name)(state, *args, n)
+    for op in fuse(list(prims), n, MAX_BLOCK):
+        name, args = plan(op, n, state.device)
+        kernels.KERNEL_FNS[name][0](state, *args, n)
     return state
+
+
+class CompiledCircuit:
+    """A measurement-free circuit segment, fused and planned once.
+
+    Construction fuses the prims and prepares every op's kernel operands on
+    ``config.device``: the folded stage blocks and their phase tables, the
+    diag passes' tables and the lane matrices are uploaded then. A call
+    only launches kernels, updating the state tensor in place (one state
+    vector of device memory).
+
+    ``optimize=False`` gives one op per prim (a dense block or a one-factor
+    diagonal layer). A dense prim on more than 4 targets that leaves the
+    lane block has no kernel: construction raises ValueError.
+    """
+
+    def __init__(self, n: int, prims, max_block: int = DEFAULT_MAX_BLOCK,
+                 optimize: bool = True, stage_group: int | None = None):
+        self.n = n
+        self.prims = tuple(prims)
+        self.device = _apply.device()
+        if optimize:
+            self.ops = fuse(self.prims, n, max_block, stage_group)
+        else:
+            self.ops = [_prim_sorted_diag(p) if p.diag else DenseOp(*_prim_sorted_dense(p))
+                        for p in self.prims]
+        self._plans = [plan(op, n, self.device) for op in self.ops]
+
+    @property
+    def num_passes(self) -> int:
+        return len(self.ops)
+
+    def stats(self) -> dict:
+        """Fusion statistics, with the keys of the JAX package's."""
+        dense = [op for op in self.ops if isinstance(op, DenseOp)]
+        layers = [op for op in self.ops if isinstance(op, DiagLayer)]
+        blocks = [op for op in self.ops if isinstance(op, StageBlockOp)]
+        layers1q = [op for op in self.ops if isinstance(op, Layer1QOp)]
+        return {
+            "layer1q_passes": len(layers1q),
+            "layer1q_gates": sum(len(l.gates) for l in layers1q),
+            "n": self.n,
+            "prims": len(self.prims),
+            "fused_ops": len(self.ops),
+            "dense_blocks": len(dense),
+            "diag_layers": len(layers),
+            "diag_factors": sum(len(l.factors) for l in layers),
+            "fused_stage_blocks": len(blocks),
+            "fused_stages": sum(len(b.stages) for b in blocks),
+            "max_stage_group": max((len(b.stages) for b in blocks), default=0),
+            "max_block_qubits": max((len(op.targets) for op in dense), default=0),
+            "backend": "cuda" if self.device.type == "cuda" else "plain",
+            "virtual_shards": 0,
+        }
+
+    def init_state(self) -> torch.Tensor:
+        """|0...0> on the circuit's device."""
+        return _apply.zero_state(self.n)
+
+    def state_to_complex(self, state: torch.Tensor) -> np.ndarray:
+        """Host numpy complex128 amplitudes."""
+        return _apply.complex_from_state(state)
+
+    def __call__(self, state: torch.Tensor) -> torch.Tensor:
+        if state.device != self.device:
+            raise ValueError(f"circuit planned on {self.device}, state on {state.device}")
+        for name, args in self._plans:
+            kernels.KERNEL_FNS[name][0](state, *args, self.n)
+        return state

@@ -1,12 +1,12 @@
-"""The four state-vector kernels of the OpenQASM file path.
+"""The five state-vector kernels of the engine.
 
 Each kernel has three parts here:
 
-* a **wrapper** (``gate``, ``diag``, ``lane``, ``layer1q``) that updates a
-  state tensor in place. On a CUDA tensor it launches the hand-written
-  Hopper kernel from ``qubism_torch/csrc`` (built by :mod:`.build`) or
-  raises; on a CPU tensor it runs the plain version. Nothing else selects
-  between the two: no fallback, no size threshold.
+* a **wrapper** (``gate``, ``diag``, ``lane``, ``layer1q``, ``stage_block``)
+  that updates a state tensor in place. On a CUDA tensor it launches the
+  hand-written Hopper kernel from ``qubism_torch/csrc`` (built by
+  :mod:`.build`) or raises; on a CPU tensor it runs the plain version.
+  Nothing else selects between the two: no fallback, no size threshold.
 * a **plain version** (``*_plain``) of the same function in torch ops, on
   any device. The CPU tests use it, and ``chip_smoke.py`` holds each kernel
   against it on the card.
@@ -14,20 +14,26 @@ Each kernel has three parts here:
   launched and nowhere else.
 
 Every wrapper takes the state (complex64, contiguous, length 2^n), its
-operands, and n, and returns the state.
+operands, and n, and returns the state. The operands the diag, lane and
+stage kernels read from device memory can be prepared once
+(:func:`diag_prepare`, :func:`lane_prepare`, :func:`stage_block_prepare`),
+so that a compiled circuit launches kernels without a host-to-device copy;
+the diag and lane wrappers also take raw host operands and upload them.
+:data:`KERNEL_FNS` maps each kernel name to its (wrapper, plain version).
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from .apply import _COL, as_operand, target_view
+from .apply import _COL, as_operand, canonical_device, target_view
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-launches = {"gate": 0, "diag": 0, "lane": 0, "layer1q": 0}
+launches = {"gate": 0, "diag": 0, "lane": 0, "layer1q": 0, "stage": 0}
 
 #: widest diagonal factor held as a table (2^7 entries: the widest factor
 #: fusion emits, a pure-lane union). Wider factors are split exactly into
@@ -56,6 +62,12 @@ def _check_state(state: torch.Tensor, n: int):
         raise ValueError(
             f"state must be a contiguous complex64 tensor of 2^{n} elements, got "
             f"{state.dtype} {tuple(state.shape)} contiguous={state.is_contiguous()}")
+
+
+def _check_plan_device(name: str, plan_device, state: torch.Tensor):
+    if plan_device != state.device:
+        raise ValueError(f"{name}: operands prepared for {plan_device}, "
+                         f"state on {state.device}")
 
 
 def _launch(state: torch.Tensor, name: str, call):
@@ -159,8 +171,36 @@ def layer1q(state: torch.Tensor, gates, n: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@dataclass(frozen=True)
+class LanePlan:
+    """A lane gate's operands: ``u`` (L, L) on the host and, for a CUDA
+    device, ``ut`` = U^T as a complex64 device tensor."""
+
+    u: np.ndarray
+    device: torch.device
+    ut: torch.Tensor | None
+
+
+def lane_prepare(u, n: int, device) -> LanePlan:
+    """Check a lane matrix (L = 2^min(n,7)) and upload U^T for a CUDA
+    device."""
+    lanes = 1 << min(n, _COL)
+    u = np.asarray(u)
+    if u.shape != (lanes, lanes):
+        raise ValueError(f"lane: matrix shape {u.shape} != {(lanes, lanes)}")
+    device = canonical_device(device)
+    ut = None
+    if device.type != "cpu":
+        # the kernel reads U^T so that a warp's lanes read consecutive columns
+        ut = torch.from_numpy(np.ascontiguousarray(u.T, dtype=np.complex64)).to(device)
+    return LanePlan(u, device, ut)
+
+
 def lane_plain(state: torch.Tensor, u, n: int) -> torch.Tensor:
-    """Every row of 2^min(n,7) amplitudes times U^T."""
+    """Every row of 2^min(n,7) amplitudes times U^T (``u`` a matrix or a
+    :class:`LanePlan`)."""
+    if isinstance(u, LanePlan):
+        u = u.u
     lanes = 1 << min(n, _COL)
     x = state.view(-1, lanes)
     x.copy_(x @ as_operand(u, state).T)
@@ -169,17 +209,15 @@ def lane_plain(state: torch.Tensor, u, n: int) -> torch.Tensor:
 
 def lane(state: torch.Tensor, u, n: int) -> torch.Tensor:
     """A gate expanded over the whole lane block (u: (L, L) complex with
-    L = 2^min(n,7), see apply.expand_for_view), in place."""
-    lanes = 1 << min(n, _COL)
-    if np.shape(u) != (lanes, lanes):
-        raise ValueError(f"lane: matrix shape {np.shape(u)} != {(lanes, lanes)}")
+    L = 2^min(n,7), see apply.expand_for_view, or its :class:`LanePlan`),
+    in place."""
+    plan = u if isinstance(u, LanePlan) else lane_prepare(u, n, state.device)
     _check_state(state, n)
     if state.device.type == "cpu":
-        return lane_plain(state, u, n)
-    # the kernel reads U^T so that a warp's lanes read consecutive columns
-    ut = as_operand(np.asarray(u).T, state)
+        return lane_plain(state, plan.u, n)
+    _check_plan_device("lane", plan.device, state)
     return _launch(state, "lane", lambda lib, d, s: lib.qk_lane(
-        _ptr(state), n, _ptr(ut), d, s))
+        _ptr(state), n, _ptr(plan.ut), d, s))
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +227,10 @@ def lane(state: torch.Tensor, u, n: int) -> torch.Tensor:
 
 def diag_plain(state: torch.Tensor, factors, n: int) -> torch.Tensor:
     """Multiply by each factor (d (2^k,), targets) in turn: a broadcast
-    multiply over a minimal-rank view of the target axes."""
+    multiply over a minimal-rank view of the target axes. ``factors`` may
+    be a :class:`DiagPlan`."""
+    if isinstance(factors, DiagPlan):
+        factors = factors.factors
     for d, targets in factors:
         d = np.asarray(d, dtype=np.complex128)
         k = len(targets)
@@ -244,33 +285,59 @@ def _split_factor_phases(f):
 
 
 def _mask_factors(f, n: int):
-    """A factor wider than _TABLE_BITS_MAX as (mask, phase) pairs: the
-    amplitude is multiplied by ``phase`` where every bit of ``mask`` is set
-    (mask 0 = every amplitude)."""
-    parts = _split_factor_phases(f)
-    if parts is None:
-        raise ValueError(f"diag: factor on {f[1]} has a zero entry; it cannot "
+    """A factor wider than _TABLE_BITS_MAX as (mask, value, phase)
+    triples: the amplitude is multiplied by ``phase`` where its bits under
+    ``mask`` read ``value`` (mask 0 = every amplitude). A factor that takes
+    one common value except at fewer than _DIAG_PASS_FACTORS points (a
+    Grover oracle's phase flip) becomes that value plus one triple per
+    point; any other factor is split exactly into multi-controlled phases
+    (:func:`_split_factor_phases`)."""
+    d, targets = f
+    d = np.asarray(d, dtype=np.complex128).ravel()
+    if np.any(np.abs(d) < 1e-300):
+        raise ValueError(f"diag: factor on {targets} has a zero entry; it cannot "
                          f"be split into phases")
+    k = len(targets)
+    vals, counts = np.unique(d, return_counts=True)
+    common = vals[np.argmax(counts)]
+    points = np.flatnonzero(d != common)
+    if len(points) < _DIAG_PASS_FACTORS:
+        full = 0
+        for t in targets:
+            full |= 1 << (n - 1 - t)
+        out = [(0, 0, common)] if common != 1 else []
+        for b in points:
+            value = 0
+            for j, t in enumerate(targets):
+                value |= ((int(b) >> (k - 1 - j)) & 1) << (n - 1 - t)
+            out.append((full, value, d[b] / common))
+        return out
     out = []
-    for ds, sub in parts:
+    for ds, sub in _split_factor_phases((d, targets)):
         mask = 0
         for t in sub:
             mask |= 1 << (n - 1 - t)
         g = ds[0]
         if g != 1:  # the global phase folded into the first part
-            out.append((0, g))
-        out.append((mask, ds[-1] / g))
+            out.append((0, 0, g))
+        out.append((mask, mask, ds[-1] / g))
     return out
+
+
+def _words(v: int) -> np.ndarray:
+    """A 64-bit mask as two int32 words (lo, hi)."""
+    return np.array([v & 0xFFFFFFFF, v >> 32], dtype=np.uint32).view(np.int32)
 
 
 def _diag_passes(factors, n: int):
     """Host side of K2: [(tables complex64 (T,), desc int32 (F, W))] per
     kernel pass, each within the shared-memory budget."""
-    items = []  # (k, table (2^k,), positions) or (0, [phase], mask)
+    items = []  # (k, table (2^k,), positions) or (0, [phase], (mask, value))
     for d, targets in factors:
         d = np.asarray(d, dtype=np.complex128).ravel()
         if len(targets) > _TABLE_BITS_MAX:
-            items.extend((0, np.array([p]), m) for m, p in _mask_factors((d, targets), n))
+            items.extend((0, np.array([p]), (m, v))
+                         for m, v, p in _mask_factors((d, targets), n))
         else:
             items.append((len(targets), d, _positions(targets, n)))
     passes, cur, entries = [], [], 0
@@ -294,22 +361,179 @@ def _diag_passes(factors, n: int):
             if k:
                 desc[f, 4:4 + k] = where
             else:
-                desc[f, 2:4] = np.array([where & 0xFFFFFFFF, where >> 32],
-                                        dtype=np.uint32).view(np.int32)
+                desc[f, 2:4] = _words(where[0])
+                desc[f, 4:6] = _words(where[1])
             off += len(table)
         out.append((tables, desc))
     return out
 
 
+@dataclass(frozen=True)
+class DiagPlan:
+    """A diagonal layer's operands: the host ``factors`` and, for a CUDA
+    device, the (tables, descriptors) device tensors of each kernel pass."""
+
+    factors: tuple
+    device: torch.device
+    passes: tuple
+
+
+def diag_prepare(factors, n: int, device) -> DiagPlan:
+    """Build (and for a CUDA device upload) the diag kernel's passes."""
+    factors = tuple(factors)
+    device = canonical_device(device)
+    passes = ()
+    if device.type != "cpu":
+        passes = tuple((torch.from_numpy(t).to(device), torch.from_numpy(d).to(device))
+                       for t, d in _diag_passes(factors, n))
+    return DiagPlan(factors, device, passes)
+
+
 def diag(state: torch.Tensor, factors, n: int) -> torch.Tensor:
-    """The product of commuting diagonal factors ((d (2^k,), targets), ...)
-    in one pass per shared-memory budget, in place."""
+    """The product of commuting diagonal factors ((d (2^k,), targets), ...,
+    or their :class:`DiagPlan`) in one pass per shared-memory budget, in
+    place."""
     _check_state(state, n)
     if state.device.type == "cpu":
         return diag_plain(state, factors, n)
-    for tables, desc in _diag_passes(factors, n):
-        tab = torch.from_numpy(tables).to(state.device)
-        dsc = torch.from_numpy(desc).to(state.device)
+    plan = factors if isinstance(factors, DiagPlan) else diag_prepare(factors, n, state.device)
+    _check_plan_device("diag", plan.device, state)
+    for tab, dsc in plan.passes:
         _launch(state, "diag", lambda lib, d, s: lib.qk_diag(
             _ptr(state), n, _ptr(tab), tab.numel(), _ptr(dsc), dsc.shape[0], d, s))
     return state
+
+
+# ---------------------------------------------------------------------------
+# K5: a block of k <= 4 QFT stages
+# ---------------------------------------------------------------------------
+
+#: low index bits per phase-table chunk, and the most chunks the kernel
+#: stages (csrc/stage.cu: kChunkBits, kMaxChunks)
+_CHUNK_BITS = 8
+_MAX_CHUNKS = 4
+
+
+@dataclass(frozen=True)
+class StagePlan:
+    """The operands of one stage block (see :func:`stage_block_prepare`).
+
+    ``coef`` is the folded (2^k, 2^k) block C, index bit k-1-t = stage t;
+    ``tables[t, c, e]`` is stage t's outside-ladder phase for the value
+    ``e`` of index bits [8c, 8c + 8); ``dev_tables`` is ``tables`` as a
+    complex64 tensor on a CUDA device (None for the CPU)."""
+
+    stages: tuple
+    targets: tuple
+    coef: np.ndarray
+    tables: np.ndarray
+    device: torch.device
+    dev_tables: torch.Tensor | None
+
+    @property
+    def chunks(self) -> int:
+        return self.tables.shape[1]
+
+
+def stage_block_prepare(stages, n: int, device) -> StagePlan:
+    """Host side of K5 for a block of k <= 4 stages
+    ((u (2,2), q, ladder), ...), q strictly ascending, where each ladder is
+    ((d (4,), (q, j)), ...) with j > q and d[0] = d[1] = 1.
+
+    Ladder factors between two of the block's qubits see stage t's OUTPUT
+    bit and stage s's INPUT bit (the ladder sits between U_t and U_s), so
+    they fold with the 1q gates into one coefficient block:
+
+        C[i, j] = prod_t U_t[i_t, j_t] * prod_{(t,s)} d_ts[(i_t << 1) | j_s]
+
+    Every other ladder bit j lies below the block (asserted), so stage t's
+    phase from those factors, P_t, depends only on the low n-1-q_k index
+    bits; it is tabulated per byte of them: a factor whose bit reads 1
+    contributes d[3], else d[2]."""
+    stages = tuple(stages)
+    k = len(stages)
+    if not 1 <= k <= 4:
+        raise ValueError(f"stage block of {k} stages: 1..4 supported")
+    targets = tuple(int(q) for _, q, _ in stages)
+    if any(targets[i] >= targets[i + 1] for i in range(k - 1)):
+        raise ValueError(f"stage qubits {targets} are not strictly ascending")
+    slot = {q: t for t, q in enumerate(targets)}
+
+    intra: dict[tuple[int, int], np.ndarray] = {}
+    outside = []  # per stage: [(d, bit position)]
+    for t, (_, q, ladder) in enumerate(stages):
+        rest = []
+        for d, (qq, j) in ladder:
+            d = np.asarray(d, dtype=np.complex128)
+            if qq != q or j <= q or d[0] != 1 or d[1] != 1:
+                raise ValueError(f"stage on {q}: ({qq}, {j}) is not a ladder factor")
+            if j in slot:
+                intra[(t, slot[j])] = intra.get((t, slot[j]), 1) * d
+            elif j > targets[-1]:
+                rest.append((d, n - 1 - j))
+            else:
+                raise ValueError(f"ladder bit {j} lies inside the block {targets}")
+        outside.append(rest)
+
+    dim = 1 << k
+    bits = (np.arange(dim)[:, None] >> (k - 1 - np.arange(k))[None, :]) & 1  # (dim, k)
+    coef = np.ones((dim, dim), dtype=np.complex128)
+    for t, (u, _, _) in enumerate(stages):
+        u = np.asarray(u, dtype=np.complex128)
+        coef *= u[bits[:, t][:, None], bits[:, t][None, :]]
+    for (t, s), d in intra.items():
+        coef *= d[(bits[:, t][:, None] << 1) | bits[:, s][None, :]]
+
+    top = max((p for rest in outside for _, p in rest), default=-1)
+    chunks = top // _CHUNK_BITS + 1
+    if chunks > _MAX_CHUNKS:
+        raise ValueError(f"stage block: ladder bit {top} needs {chunks} table "
+                         f"chunks (> {_MAX_CHUNKS})")
+    entry = np.arange(1 << _CHUNK_BITS)
+    tables = np.ones((k, chunks, 1 << _CHUNK_BITS), dtype=np.complex128)
+    for t, rest in enumerate(outside):
+        for d, p in rest:
+            on = ((entry >> (p % _CHUNK_BITS)) & 1) == 1
+            tables[t, p // _CHUNK_BITS] *= np.where(on, d[3], d[2])
+
+    device = canonical_device(device)
+    dev_tables = None
+    if device.type != "cpu" and chunks:
+        dev_tables = torch.from_numpy(tables.astype(np.complex64)).to(device)
+    return StagePlan(stages, targets, coef, tables, device, dev_tables)
+
+
+def stage_block_plain(state: torch.Tensor, stages, n: int) -> torch.Tensor:
+    """Each stage as written: its 1q gate, then its ladder (``stages``
+    may be a :class:`StagePlan`)."""
+    if isinstance(stages, StagePlan):
+        stages = stages.stages
+    for u, q, ladder in stages:
+        gate_plain(state, u, (q,), n)
+        if ladder:
+            diag_plain(state, ladder, n)
+    return state
+
+
+def stage_block(state: torch.Tensor, plan: StagePlan, n: int) -> torch.Tensor:
+    """A block of k <= 4 QFT stages in one pass, in place."""
+    _check_state(state, n)
+    if state.device.type == "cpu":
+        return stage_block_plain(state, plan.stages, n)
+    _check_plan_device("stage", plan.device, state)
+    k = len(plan.targets)
+    coef = np.ascontiguousarray(plan.coef, dtype=np.complex64)
+    pos = _positions(plan.targets, n)
+    tab = _ptr(plan.dev_tables) if plan.dev_tables is not None else ctypes.c_void_p(None)
+    return _launch(state, "stage", lambda lib, d, s: lib.qk_stage(
+        _ptr(state), n, k, _host(pos), _host(coef), tab, plan.chunks, d, s))
+
+
+#: kernel name -> (wrapper, plain version); both take (state, *operands, n)
+KERNEL_FNS = {
+    "gate": (gate, gate_plain),
+    "diag": (diag, diag_plain),
+    "lane": (lane, lane_plain),
+    "layer1q": (layer1q, layer1q_plain),
+    "stage": (stage_block, stage_block_plain),
+}
