@@ -21,13 +21,22 @@ the launch counters set to 0 just before it and read just after:
   ``hadamard`` / ``controlled(phase)``, applied gate by gate and through
   ``CompiledCircuit``.
 
-The counters show which kernels each path went through. The 30- and
-28-qubit programs are then run again with every fused pass also applied by
-the plain versions, and the states compared.
+* the bandwidth probe, ``qubism_torch.experiments.bw_probe``: every variant
+  at n = 28 (lines ``probe {...}``), none reading above 105% of the card's
+  published 3.35 TB/s.
+
+The two probe kernels are first held against their plain versions like the
+others (copy and write exactly; the read probe's sum within 1e-5 of the sum
+of magnitudes). The counters show which kernels each path went through. The
+30- and 28-qubit programs are then run again with every fused pass also
+applied by the plain versions, and the states compared.
 
 The last line of standard output is one JSON object,
-``{"ok": true, "device": {...}}``; the line before it lists the kernels.
-Any failed check exits non-zero without that line. No JAX is imported.
+``{"ok": true, "device": {...}}``; the line before it lists the kernels,
+each with its bound (the least time of one H100 SXM for the bytes and
+float32 operations of the timed call) and, where one PyTorch call computes
+the same function, that call's time. Any failed check exits non-zero
+without that line. No JAX is imported.
 """
 
 from __future__ import annotations
@@ -53,17 +62,25 @@ SHOTS = 8192
 KERNELS = {
     "gate": ("qubism_torch/csrc/gate.cu", "qubism_tpu/ops/kernels.py:256"),
     "diag": ("qubism_torch/csrc/diag.cu", "qubism_tpu/ops/kernels.py:819"),
-    "lane": ("qubism_torch/csrc/lane.cu", "qubism_tpu/ops/kernels.py:894"),
+    "lane": ("qubism_torch/csrc/lane.cu",
+             "qubism_tpu/ops/kernels.py:894; experiments/bw_probe.py:506 (P10)"),
     "layer1q": ("qubism_torch/csrc/layer1q.cu", "qubism_tpu/ops/kernels.py:483"),
     "stage": ("qubism_torch/csrc/stage.cu",
               "qubism_tpu/ops/kernels.py:256 (stage 1-4; stage_block_prepare :1041)"),
+    "probe_stream": ("qubism_torch/csrc/probe.cu",
+                     "experiments/bw_probe.py:50, :81, :157, :189, :220, :573 (P1-P5, P11)"),
+    "probe_pair": ("qubism_torch/csrc/probe.cu",
+                   "experiments/bw_probe.py:258, :300, :351, :456 (P6-P9)"),
 }
 #: the kernels each driven path must launch
 PATH_KERNELS = {
     "file path": ("gate", "diag", "lane", "layer1q"),
     "compiled path": ("gate", "diag", "lane", "layer1q", "stage"),
     "DSL": ("gate", "diag", "lane", "stage"),
+    "bandwidth probe": ("probe_stream", "probe_pair", "lane"),
 }
+#: the bandwidth probe's variants whose times fill the probe kernels' rows
+PROBE_ROWS = {"probe_stream": "phase_256x4", "probe_pair": "pair_q5"}
 
 
 class SmokeFailure(Exception):
@@ -179,10 +196,19 @@ def kernel_cases(n, rng):
     return cases
 
 
+#: kernel launches made inside time_ms, per kernel (a path's launches less
+#: these are the path's own work)
+TIMED = {}
+
+
 def time_ms(fn, state, reps=5):
-    """Device milliseconds per call (CUDA events over ``reps`` calls)."""
+    """Device milliseconds per call (CUDA events over ``reps`` calls); the
+    launches it makes are added to TIMED."""
     import torch
 
+    from qubism_torch.ops import kernels
+
+    before = dict(kernels.launches)
     fn(state)
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -192,7 +218,38 @@ def time_ms(fn, state, reps=5):
         fn(state)
     t1.record()
     torch.cuda.synchronize()
+    for k, v in kernels.launches.items():
+        TIMED[k] = TIMED.get(k, 0) + v - before[k]
     return t0.elapsed_time(t1) / reps
+
+
+def kernel_cost(name, args, n):
+    """(bytes, float32 operations) one call of kernel ``name`` needs on these
+    operands: every amplitude read and written once plus the operands read
+    once; a complex multiply-add is 8 operations, a complex product 6."""
+    import numpy as np
+
+    amps = 1 << n
+    if name == "gate":
+        d = 1 << len(args[1])
+        return 16 * amps + 8 * d * d, 8 * d * amps
+    if name == "layer1q":
+        m = len(args[0])
+        return 16 * amps + 32 * m, 16 * m * amps
+    if name == "diag":  # each factor's product, then one into the amplitude
+        factors = args[0]
+        tables = sum(np.asarray(d).size for d, _ in factors)
+        return 16 * amps + 8 * tables, 6 * (len(factors) + 1) * amps
+    if name == "lane":
+        lanes = 1 << min(n, 7)
+        return 16 * amps + 8 * lanes * lanes, 8 * lanes * amps
+    if name == "stage":  # per group of 2^k: C x, the phase lookups, the phases
+        plan = args[0]
+        k, d = len(plan.targets), 1 << len(plan.targets)
+        groups = amps // d
+        ops = 8 * d * d + 6 * k * plan.chunks + 6 * k * d // 2
+        return 16 * amps + 8 * (d * d + plan.tables.size), ops * groups
+    raise ValueError(name)
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +263,7 @@ def phase_kernels(report):
     import torch
 
     from qubism_torch.ops import kernels as K
+    from qubism_torch.ops import probes as P
 
     rng = np.random.default_rng(2024)
     for n in (N_CHECK, N_WIDE):
@@ -259,13 +317,120 @@ def phase_kernels(report):
         k2 = time_ms(kern, s)
         p2 = time_ms(plain, s)
         kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+        bound_ms, bound_by = P.bound(*kernel_cost(name, args, n))
+        lms = None
+        if name == "lane":  # the same product as one torch.matmul
+            ut = torch.from_numpy(np.ascontiguousarray(args[0].T, dtype=np.complex64)).to(DEV)
+            buf = torch.empty_like(s).view(-1, 128)
+            lms = time_ms(lambda st: torch.matmul(st.view(-1, 128), ut, out=buf), s)
+            del buf
         if name != "stage" or label == f"stage k={STAGE_GROUP}":
-            report[name]["ms"] = kms
-            report[name]["plain_ms"] = pms
+            report[name].update(ms=kms, plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=lms)
         log(f"time n={n} {label}: kernel {kms:.3f} ms ({gb / kms * 1e3:.1f} GB/s), "
-            f"plain {pms:.3f} ms ({gb / pms * 1e3:.1f} GB/s)")
+            f"plain {pms:.3f} ms ({gb / pms * 1e3:.1f} GB/s), bound {bound_ms:.3f} ms "
+            f"({bound_by}; {bound_ms / kms:.1%} of it)"
+            + (f", torch.matmul {lms:.3f} ms" if lms is not None else ""))
     del s
     torch.cuda.empty_cache()
+
+
+def probe_cases(n, rng):
+    """(kernel, label, kernel call, plain call, exact) cases of the two probe
+    kernels at n qubits; each call takes a fresh copy of the state and
+    returns what it wrote (read: the sum). The first case of each label
+    prefix is the one run at full width."""
+    import numpy as np
+    import torch
+
+    from qubism_torch.ops import probes as P
+
+    def stream_case(mode, second, geometry):
+        def call(fn, **kw):
+            return lambda x: fn(x, mode, n, torch.empty_like(x) if second else None, **kw)
+
+        label = f"{mode}{' out' if second else ''} {geometry[0]}x{geometry[1]}"
+        return ("probe_stream", label, call(P.stream, geometry=geometry), call(P.stream_plain),
+                mode in ("copy", "write"))
+
+    def table(size):
+        t = np.exp(1j * rng.uniform(0, 2 * math.pi, size)).astype(np.complex64)
+        return torch.from_numpy(t).to(DEV)
+
+    def pair_case(q, coef, tables="", phase=P.PHASE, cols=2048, second=False,
+                  geometry=P.DEFAULT_GEOMETRY):
+        tail = 1 << (n - 1 - q)
+        C = min(cols, tail)
+        kw = dict(phase=phase, cols=cols, row=table(tail // C) if "row" in tables else None,
+                  lane=table(C) if "lane" in tables else None)
+
+        def call(fn, **extra):
+            return lambda x: fn(x, q, coef, n, out=torch.empty_like(x) if second else None,
+                                **kw, **extra)
+
+        label = f"pair q={q} {tables or 'const'}{' out' if second else ''} " \
+                f"{geometry[0]}x{geometry[1]}"
+        return ("probe_pair", label, call(P.pair, geometry=geometry), call(P.pair_plain), False)
+
+    h = np.array([[1, 1], [1, -1]]) / math.sqrt(2)
+    cases = [stream_case("copy", True, (256, 1)), stream_case("phase", False, (256, 4)),
+             stream_case("read", False, (1024, 4)), stream_case("write", False, (256, 4)),
+             pair_case(5, unitary(1, rng), "row lane")]
+    if n < N_WIDE:
+        cases += [stream_case("phase", True, (1024, 4)), stream_case("write", True, (128, 2)),
+                  stream_case("copy", True, (1024, 4)), stream_case("read", False, (256, 1)),
+                  pair_case(0, h, cols=64, tables="row lane", geometry=(512, 4)),
+                  pair_case(n // 2, h), pair_case(n - 10, h, phase=1, geometry=(256, 1)),
+                  pair_case(n - 2, unitary(1, rng), "lane", geometry=(128, 2)),
+                  pair_case(n - 1, unitary(1, rng), "row", second=True)]
+    return cases
+
+
+def phase_probe_kernels(report):
+    """The two probe kernels against their plain versions on the card: copy
+    and write exactly, phase and pair to TOL in relative L2, the read sum to
+    TOL times the sum of magnitudes."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(2025)
+    for n in (N_CHECK, N_WIDE):
+        for i, (name, label, kern, plain, exact) in enumerate(probe_cases(n, rng)):
+            s = rand_state(n, 500 + 10 * n + i)
+            got = kern(s.clone())
+            want = plain(s.clone())
+            sync()
+            if label.startswith("read"):
+                abs_err = abs(float(got[0]) - float(want[0]))
+                scale = float(torch.view_as_real(s).abs().sum())
+                ok, err = abs_err <= TOL * scale, abs_err / scale
+            else:
+                abs_err = float((got - want).abs().max())
+                err = rel_err(got, want)
+                ok = torch.equal(got, want) if exact else err <= TOL
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"], abs_err)
+            log(f"kernel {name} n={n} {label}: rel={err:.3e} max_abs={abs_err:.3e}")
+            check(ok, f"{name} {label} disagrees with its plain version at n={n}: "
+                      f"rel {err:.3e}, max abs {abs_err:.3e}" + (" (must be exact)" if exact else ""))
+            del s, got, want
+
+
+def run_bw_probe(report):
+    """Every variant of the bandwidth probe at n = N_TIME through its own
+    functions; the probe kernels' rows take their times from PROBE_ROWS."""
+    from qubism_torch.experiments import bw_probe
+
+    lines = bw_probe.run(N_TIME, list(bw_probe.VARIANTS), device=DEV,
+                         emit=lambda s: log(f"probe {s}"))
+    bad = [(x["variant"], round(x["gbps"], 1)) for x in lines
+           if x["frac_peak"] > bw_probe.MAX_FRAC_PEAK]
+    check(not bad, f"bandwidth probe readings above {bw_probe.MAX_FRAC_PEAK:.0%} of "
+                   f"{bw_probe.PEAK_GBPS:.0f} GB/s: {bad}")
+    by_name = {x["variant"]: x for x in lines}
+    for name, variant in PROBE_ROWS.items():
+        x = by_name[variant]
+        report[name].update(ms=x["ms_per_pass"], plain_ms=x["plain_ms"], bound_ms=x["bound_ms"],
+                            bound_by=x["bound_by"], library_ms=x["library_ms"])
 
 
 def _counts(text):
@@ -599,7 +764,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from qubism_torch.config import config
-    from qubism_torch.ops import build, kernels
+    from qubism_torch.ops import build, kernels, probes
 
     check(config.device == "cuda", f"config.device is {config.device!r}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -614,24 +779,31 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     report = {name: {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-                     "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None}
+                     "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
+                     "bound_ms": None, "bound_by": None, "library_ms": None}
               for name, (src, tpu) in KERNELS.items()}
 
     t0 = time.perf_counter()
     phase_kernels(report)
+    phase_probe_kernels(report)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
     # each path with the counters set to 0 just before it and read just after
     paths = {"file path": run_main_path, "compiled path": run_compiled_path,
-             "DSL": run_dsl_path}
+             "DSL": run_dsl_path, "bandwidth probe": lambda: run_bw_probe(report)}
     for label, drive in paths.items():
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        timed_before = dict(TIMED)
         kernels.reset_launches()
+        probes.reset_launches()
         drive()
-        launches = dict(kernels.launches)
-        log(f"phase {label}: {time.perf_counter() - t0:.1f} s, launches {launches}, "
-            f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        launches = {**kernels.launches, **probes.launches}
+        timed = {k: v - timed_before.get(k, 0) for k, v in TIMED.items()
+                 if v > timed_before.get(k, 0)}
+        log(f"phase {label}: {time.perf_counter() - t0:.1f} s, launches {launches}"
+            + (f" (in timing calls {timed})" if timed else "")
+            + f", peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
         for name in KERNELS:
             report[name]["launches"] += launches[name]
         for name in PATH_KERNELS[label]:

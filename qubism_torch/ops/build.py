@@ -103,7 +103,10 @@ def library() -> ctypes.CDLL:
     lib.qk_lane.argtypes = [p, i64, p, i32, p]
     lib.qk_diag.argtypes = [p, i64, p, i64, p, i32, i32, p]
     lib.qk_stage.argtypes = [p, i64, i32, p, p, p, i32, i32, p]
-    for fn in (lib.qk_gate, lib.qk_layer1q, lib.qk_lane, lib.qk_diag, lib.qk_stage):
+    lib.qk_probe_stream.argtypes = [i32, p, p, i64, p, p, p, i64, p, i32, i32, i32, p]
+    lib.qk_probe_pair.argtypes = [p, p, i64, i32, p, p, p, i32, i32, i32, i32, p]
+    for fn in (lib.qk_gate, lib.qk_layer1q, lib.qk_lane, lib.qk_diag, lib.qk_stage,
+               lib.qk_probe_stream, lib.qk_probe_pair):
         fn.restype = ctypes.c_int
     lib.qk_error_string.argtypes = [ctypes.c_int]
     lib.qk_error_string.restype = ctypes.c_char_p

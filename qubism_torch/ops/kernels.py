@@ -70,9 +70,9 @@ def _check_plan_device(name: str, plan_device, state: torch.Tensor):
                          f"state on {state.device}")
 
 
-def _launch(state: torch.Tensor, name: str, call):
+def _launch(state: torch.Tensor, name: str, call, counts=None):
     """Run ``call(lib, device index, stream)`` for a CUDA state and count
-    the launch."""
+    the launch in ``counts[name]`` (default :data:`launches`)."""
     from . import build
 
     if state.device.type != "cuda":
@@ -84,7 +84,7 @@ def _launch(state: torch.Tensor, name: str, call):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.qk_error_string(rc).decode()} ({rc})")
-    launches[name] += 1
+    (launches if counts is None else counts)[name] += 1
     return state
 
 
