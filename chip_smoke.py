@@ -23,10 +23,18 @@ the launch counters set to 0 just before it and read just after:
 
 * the bandwidth probe, ``qubism_torch.experiments.bw_probe``: every variant
   at n = 28 (lines ``probe {...}``), none reading above 105% of the card's
-  published 3.35 TB/s.
+  published 3.35 TB/s;
+* the mesh path: ``eval_file(..., mesh=1)`` on GHZ-30 with 8192 shots (one
+  shard of two banks, so the H on qubit 0 runs through the butterfly
+  kernel), ``ShardedSim`` on QFT-30 against ``CompiledCircuit`` (warm wall
+  seconds of both), and a 4-shard mesh placed on the one card (2 device
+  bits, 2 bank bits) against the single-device engine, with measurements on
+  a device and a bank bit and 8192 shots.
 
-The two probe kernels are first held against their plain versions like the
-others (copy and write exactly; the read probe's sum within 1e-5 of the sum
+The butterfly kernel (K6) is held against its plain version at 2^20 and
+2^30 amplitudes in 2, 4 and 16 banks and timed at 2^28 beside one
+``torch.matmul``. The two probe kernels are held against their plain
+versions like the others (copy and write exactly; the read probe's sum within 1e-5 of the sum
 of magnitudes). The counters show which kernels each path went through. The
 30- and 28-qubit programs are then run again with every fused pass also
 applied by the plain versions, and the states compared.
@@ -67,6 +75,7 @@ KERNELS = {
     "layer1q": ("qubism_torch/csrc/layer1q.cu", "qubism_tpu/ops/kernels.py:483"),
     "stage": ("qubism_torch/csrc/stage.cu",
               "qubism_tpu/ops/kernels.py:256 (stage 1-4; stage_block_prepare :1041)"),
+    "butterfly": ("qubism_torch/csrc/butterfly.cu", "qubism_tpu/ops/kernels.py:944"),
     "probe_stream": ("qubism_torch/csrc/probe.cu",
                      "experiments/bw_probe.py:50, :81, :157, :189, :220, :573 (P1-P5, P11)"),
     "probe_pair": ("qubism_torch/csrc/probe.cu",
@@ -78,7 +87,11 @@ PATH_KERNELS = {
     "compiled path": ("gate", "diag", "lane", "layer1q", "stage"),
     "DSL": ("gate", "diag", "lane", "stage"),
     "bandwidth probe": ("probe_stream", "probe_pair", "lane"),
+    "mesh path": ("butterfly", "gate", "diag", "lane", "stage"),
 }
+#: the butterfly kernel's bank counts, and the one whose time fills its row
+#: (the mesh path's: one card holds 30 qubits as 2 banks of 2^29)
+BFLY_SIZES, BFLY_ROW = (2, 4, 16), 2
 #: the bandwidth probe's variants whose times fill the probe kernels' rows
 PROBE_ROWS = {"probe_stream": "phase_256x4", "probe_pair": "pair_q5"}
 
@@ -196,31 +209,45 @@ def kernel_cases(n, rng):
     return cases
 
 
-#: kernel launches made inside time_ms, per kernel (a path's launches less
+#: kernel launches made inside time_ms, and by the single-device engine
+#: computing a mesh run's reference, per kernel (a path's launches less
 #: these are the path's own work)
 TIMED = {}
+REFERENCE = {}
 
 
-def time_ms(fn, state, reps=5):
-    """Device milliseconds per call (CUDA events over ``reps`` calls); the
-    launches it makes are added to TIMED."""
-    import torch
-
+def tally(counts, fn):
+    """Run ``fn()``, adding the kernel launches it makes to ``counts``."""
     from qubism_torch.ops import kernels
 
     before = dict(kernels.launches)
-    fn(state)
+    out = fn()
+    for k, v in kernels.launches.items():
+        counts[k] = counts.get(k, 0) + v - before[k]
+    return out
+
+
+def device_ms(fn, reps=5):
+    """Device milliseconds per ``fn()`` call: one warm-up call, then CUDA
+    events around ``reps`` calls."""
+    import torch
+
+    fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
     for _ in range(reps):
-        fn(state)
+        fn()
     t1.record()
     torch.cuda.synchronize()
-    for k, v in kernels.launches.items():
-        TIMED[k] = TIMED.get(k, 0) + v - before[k]
     return t0.elapsed_time(t1) / reps
+
+
+def time_ms(fn, state, reps=5):
+    """:func:`device_ms` of ``fn(state)``; the launches it makes are added
+    to TIMED."""
+    return tally(TIMED, lambda: device_ms(lambda: fn(state), reps))
 
 
 def kernel_cost(name, args, n):
@@ -249,6 +276,9 @@ def kernel_cost(name, args, n):
         groups = amps // d
         ops = 8 * d * d + 6 * k * plan.chunks + 6 * k * d // 2
         return 16 * amps + 8 * (d * d + plan.tables.size), ops * groups
+    if name == "butterfly":  # 2^n amplitudes over S banks: S complex MACs each
+        S = args[0].u.shape[0]
+        return 16 * amps + 8 * S * S, 8 * S * amps
     raise ValueError(name)
 
 
@@ -332,6 +362,64 @@ def phase_kernels(report):
             f"({bound_by}; {bound_ms / kms:.1%} of it)"
             + (f", torch.matmul {lms:.3f} ms" if lms is not None else ""))
     del s
+    torch.cuda.empty_cache()
+
+
+def phase_butterfly(report):
+    """K6 against its plain version at 2^N_CHECK and 2^N_WIDE amplitudes
+    split into S banks (contiguous views of one state), then timed at
+    2^N_TIME with its plain version and one torch.matmul of U by the
+    (S, 2^n / S) stack of the banks."""
+    import numpy as np
+    import torch
+
+    from qubism_torch.ops import kernels as K
+    from qubism_torch.ops import probes as P
+
+    rng = np.random.default_rng(2026)
+    for n in (N_CHECK, N_WIDE):
+        for S in BFLY_SIZES:
+            m = n - S.bit_length() + 1
+            plan = K.shard_butterfly_prepare(unitary(S.bit_length() - 1, rng), DEV)
+            s = rand_state(n, 900 + n + S)
+            ref = s.clone()
+            K.shard_butterfly_plain(list(ref.view(S, -1)), plan, m)
+            K.shard_butterfly(list(s.view(S, -1)), plan, m)
+            sync()
+            err = rel_err(s, ref)
+            abs_err = float((s - ref).abs().max())
+            report["butterfly"]["max_abs_err"] = max(report["butterfly"]["max_abs_err"], abs_err)
+            log(f"kernel butterfly n={n} S={S}: rel_l2={err:.3e} max_abs={abs_err:.3e}")
+            check(err <= TOL, f"butterfly disagrees with its plain version at n={n} S={S}: "
+                              f"rel L2 {err:.3e} > {TOL}")
+            del s, ref
+    if DEV != "cuda":
+        return
+    n = N_TIME
+    s = rand_state(n, 77)
+    buf = torch.empty_like(s)
+    for S in BFLY_SIZES:
+        m = n - S.bit_length() + 1
+        plan = K.shard_butterfly_prepare(unitary(S.bit_length() - 1, rng), DEV)
+        banks = list(s.view(S, -1))
+        kern = lambda b, plan=plan, m=m: K.shard_butterfly(b, plan, m)  # noqa: E731
+        plain = lambda b, plan=plan, m=m: K.shard_butterfly_plain(b, plan, m)  # noqa: E731
+        p1 = time_ms(plain, banks)
+        k1 = time_ms(kern, banks)
+        k2 = time_ms(kern, banks)
+        p2 = time_ms(plain, banks)
+        kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+        u = torch.from_numpy(plan.coef).to(DEV)
+        lms = time_ms(lambda x, u=u, S=S: torch.matmul(u, x.view(S, -1), out=buf.view(S, -1)), s)
+        bound_ms, bound_by = P.bound(*kernel_cost("butterfly", (plan,), n))
+        if S == BFLY_ROW:
+            report["butterfly"].update(ms=kms, plain_ms=pms, bound_ms=bound_ms,
+                                       bound_by=bound_by, library_ms=lms)
+        log(f"time n={n} butterfly S={S}: kernel {kms:.3f} ms "
+            f"({16 * (1 << n) / 1e9 / kms * 1e3:.1f} GB/s), plain {pms:.3f} ms, "
+            f"bound {bound_ms:.3f} ms ({bound_by}; {bound_ms / kms:.1%} of it), "
+            f"torch.matmul {lms:.3f} ms")
+    del s, buf
     torch.cuda.empty_cache()
 
 
@@ -673,6 +761,174 @@ def run_dsl_path():
     check(err <= TOL, f"dsl qft{n}: compiled differs from gate by gate by {err}")
 
 
+def physical_order(ref, n, inv):
+    """``ref`` (logical qubit order) with logical qubit inv[p] moved to
+    position p, by SWAP gates (the gate kernel) in place: the layout of a
+    ShardedSim whose ``inv`` this is, read as one state."""
+    import numpy as np
+
+    from qubism_torch.ops import kernels
+
+    swap = np.eye(4)[[0, 2, 1, 3]]
+    at = list(range(n))  # the logical qubit at each position of ref
+    for p in range(n):
+        if at[p] != inv[p]:
+            r = at.index(inv[p])
+            kernels.gate(ref, swap, (min(p, r), max(p, r)), n)
+            at[p], at[r] = at[r], at[p]
+    return ref
+
+
+def sharded_err(sim, ref):
+    """Relative L2 between a ShardedSim's banks and ``ref``, a single-device
+    state of the same circuit (permuted in place to the sim's layout)."""
+    import torch
+
+    physical_order(ref, sim.n, sim.inv)
+    S, width = 1 << sim.w, 1 << sim.m
+    diff = 0.0
+    for i in range(sim.D):
+        for s in range(S):
+            off = (i * S + s) * width
+            diff += float(torch.linalg.vector_norm(sim.banks[s][i] - ref[off:off + width])) ** 2
+    return math.sqrt(diff) / float(torch.linalg.vector_norm(ref))
+
+
+def mesh_prims(n, rng, inv=None):
+    """A circuit for a 4-shard, 4-bank layout (positions 0-1 device bits,
+    2-3 bank bits). Without ``inv``: H on every qubit and a random 2q gate
+    on a device bit (relabelling swaps), gates on bank bits (the butterfly
+    kernel with S = 2 and 4), and CXs and a random 2q gate between bank and
+    local bits (the block decomposition). With ``inv`` (the sim's position
+    -> logical qubit after that): diagonals on the qubits then at device
+    bits, with a bank and a local bit, and a last dense gate on a device
+    bit."""
+    import numpy as np
+
+    from qubism_torch.core.gates import Prim
+
+    h = np.array([[1, 1], [1, -1]]) / math.sqrt(2)
+    cx = np.eye(4)[[0, 1, 3, 2]]
+    if inv is None:
+        return [Prim(h, (q,)) for q in range(n)] + [
+            Prim(unitary(2, rng), (1, 5)), Prim(cx, (0, n - 1)),
+            Prim(unitary(1, rng), (2,)), Prim(unitary(1, rng), (3,)),
+            Prim(unitary(2, rng), (2, 3)),
+            Prim(cx, (3, 10)), Prim(cx, (12, 2)), Prim(unitary(2, rng), (2, n - 3)),
+            Prim(unitary(2, rng), (n - 9, n - 2)),
+        ]
+    g0, g1, b, loc = inv[0], inv[1], inv[2], inv[n - 1]
+    return [
+        Prim(np.array([1, 1, 1, -1]), (g0, loc), diag=True),
+        Prim(np.exp(1j * rng.uniform(0, 2 * math.pi, 8)), (g1, b, loc), diag=True),
+        Prim(np.array([1, np.exp(0.3j)]), (g0,), diag=True),
+        Prim(unitary(1, rng), (b,)), Prim(unitary(1, rng), (g1,)),
+        Prim(unitary(2, rng), (7, 8)),
+    ]
+
+
+def run_mesh_path():
+    """The mesh path: eval_file(mesh=1) on GHZ-30 with shots; ShardedSim
+    on QFT-30 against CompiledCircuit; a 4-shard mesh on the one card
+    against the single-device engine, then measurements and shots. The
+    single-device runs and the swaps that lay out their states are counted
+    in REFERENCE."""
+    import numpy as np
+    import torch
+
+    from qubism_torch import cli
+    from qubism_torch.models.circuits import ghz_qasm, qft_prims
+    from qubism_torch.ops.fusion import CompiledCircuit
+    from qubism_torch.parallel import ShardedSim, make_mesh
+    from qubism_torch.utils.stats import chi2_test
+
+    n = N_BIG
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    rc = cli.eval_file(os.path.join(EXAMPLES, "<chip_smoke mesh ghz30>.qasm"),
+                       source=ghz_qasm(n, measure=False), out=buf, seed=11, shots=SHOTS, mesh=1)
+    sync()
+    check(rc == 0 and buf.getvalue().rstrip().endswith("Done."),
+          f"mesh ghz{n}: eval_file rc={rc}\n{buf.getvalue()[-2000:]}")
+    log(f"mesh ghz{n} --mesh 1: {time.perf_counter() - t0:.2f} s")
+    check_ghz_counts(f"mesh ghz{n}", _counts(buf.getvalue()), n)
+
+    prims = qft_prims(n)
+    sim = ShardedSim(n, make_mesh(1))
+    check((sim.D, sim.w, sim.m) == (1, 1, n - 1), f"mesh qft{n}: layout {sim.D, sim.w, sim.m}")
+    t0 = time.perf_counter()
+    sim.apply(prims)
+    sync()
+    log(f"mesh qft{n}: ShardedSim(mesh=1, 2 banks) first run {time.perf_counter() - t0:.2f} s "
+        f"(lowering included), {sim.dispatch_count} segments")
+    circ = tally(REFERENCE, lambda: CompiledCircuit(n, prims))
+    state = tally(REFERENCE, lambda: circ(circ.init_state()))
+    err = tally(REFERENCE, lambda: sharded_err(sim, state))
+    log(f"mesh qft{n}: ShardedSim against CompiledCircuit rel_l2 {err:.3e}")
+    check(err <= TOL, f"mesh qft{n}: sharded state differs from the compiled one by {err}")
+    wall = {"sharded": [], "compiled": []}
+    per_call = {}
+    for which in ("sharded", "compiled", "compiled", "sharded"):
+        t0 = time.perf_counter()
+        if which == "sharded":
+            tally(per_call, lambda: sim.apply(prims))
+        else:
+            tally(REFERENCE, lambda: circ(state))
+        sync()
+        wall[which].append(time.perf_counter() - t0)
+    log(f"mesh qft{n}: warm wall ShardedSim {sum(wall['sharded']) / 2:.4f} s, "
+        f"CompiledCircuit {sum(wall['compiled']) / 2:.4f} s "
+        f"({wall['sharded']}, {wall['compiled']}); ShardedSim launches per call "
+        f"{ {k: v // 2 for k, v in per_call.items() if v} }")
+    if DEV == "cuda":
+        sharded_ms = time_ms(lambda _: sim.apply(prims), None, reps=3)
+        compiled_ms = tally(REFERENCE, lambda: device_ms(lambda: circ(state), reps=3))
+        log(f"mesh qft{n}: device ms per call ShardedSim {sharded_ms:.3f}, "
+            f"CompiledCircuit {compiled_ms:.3f}")
+    del sim, circ, state
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(404)
+    sim = ShardedSim(n, [torch.device(DEV, 0) if DEV == "cuda" else DEV] * 4, banks=2)
+    check((sim.D, sim.w, sim.m) == (4, 2, n - 4), f"4-shard layout {sim.D, sim.w, sim.m}")
+    t0 = time.perf_counter()
+    prims = mesh_prims(n, rng)
+    sim.apply(prims)
+    more = mesh_prims(n, rng, sim.inv)
+    sim.apply(more)
+    sync()
+    kinds = {step[0] for steps in sim._lowered.values() for step in steps}
+    log(f"mesh 4 shards x 4 banks on one card: {time.perf_counter() - t0:.2f} s, "
+        f"{sim.dispatch_count} segments and swaps, perm {sim.perm}, steps {sorted(kinds)}")
+    check(kinds == {"banks", "bfly", "crossmix", "gdiag"} and sim.perm != list(range(n)),
+          f"4-shard run: steps {kinds}, perm {sim.perm}")
+    circ = tally(REFERENCE, lambda: CompiledCircuit(n, prims + more))
+    ref = tally(REFERENCE, lambda: circ(circ.init_state()))
+    err = tally(REFERENCE, lambda: sharded_err(sim, ref))
+    log(f"mesh 4 shards: against the single-device engine rel_l2 {err:.3e}")
+    check(err <= TOL, f"4-shard mesh differs from the single-device engine by {err}")
+    del circ, ref
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(23)
+    for where, q in (("device", sim.inv[0]), ("bank", sim.inv[2])):
+        p1 = sim.prob_one(q)
+        (bit,) = sim.measure_qubits([q], gen)
+        after = sim.prob_one(q)
+        mass = sum(float(torch.linalg.vector_norm(t)) ** 2 for row in sim.banks for t in row)
+        log(f"mesh 4 shards: measured qubit {q} on a {where} bit: P(1) {p1:.4f} -> {bit}, "
+            f"then P(1) {after:.2e}, mass {mass:.6f}")
+        check(abs(after - bit) <= 1e-5 and abs(mass - 1) <= 1e-4,
+              f"4-shard measurement of qubit {q}: P(1) {after} after outcome {bit}, mass {mass}")
+    probs = sim.marginal([0, 1, 2, 3])
+    idx = sim.sample(SHOTS, gen)
+    top = np.bincount(idx >> (n - 4), minlength=16).astype(float)
+    res = chi2_test(top, probs / probs.sum())
+    log(f"mesh 4 shards: {SHOTS} shots, top-4 chi2: {res}")
+    check(bool(res), f"4-shard shots fail chi2 against the marginal: {res}")
+    check(all(t.device.type == DEV for row in sim.banks for t in row), "a bank left the card")
+
+
 def phase_plain_compare():
     """The 30- and 28-qubit programs again, each queued run of gates applied
     by the kernels and, on a clone, by the plain versions."""
@@ -785,29 +1041,36 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_kernels(report)
+    phase_butterfly(report)
     phase_probe_kernels(report)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
     # each path with the counters set to 0 just before it and read just after
     paths = {"file path": run_main_path, "compiled path": run_compiled_path,
-             "DSL": run_dsl_path, "bandwidth probe": lambda: run_bw_probe(report)}
+             "DSL": run_dsl_path, "bandwidth probe": lambda: run_bw_probe(report),
+             "mesh path": run_mesh_path}
+
+    def since(counts, before):
+        return {k: v - before.get(k, 0) for k, v in counts.items() if v > before.get(k, 0)}
+
     for label, drive in paths.items():
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        timed_before = dict(TIMED)
+        timed_before, ref_before = dict(TIMED), dict(REFERENCE)
         kernels.reset_launches()
         probes.reset_launches()
         drive()
         launches = {**kernels.launches, **probes.launches}
-        timed = {k: v - timed_before.get(k, 0) for k, v in TIMED.items()
-                 if v > timed_before.get(k, 0)}
+        timed, ref = since(TIMED, timed_before), since(REFERENCE, ref_before)
         log(f"phase {label}: {time.perf_counter() - t0:.1f} s, launches {launches}"
             + (f" (in timing calls {timed})" if timed else "")
+            + (f" (by the single-device reference {ref})" if ref else "")
             + f", peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
         for name in KERNELS:
-            report[name]["launches"] += launches[name]
+            report[name]["launches"] += launches[name] - ref.get(name, 0)
         for name in PATH_KERNELS[label]:
-            check(launches[name] > 0, f"the {label} never launched the {name} kernel")
+            own = launches[name] - timed.get(name, 0) - ref.get(name, 0)
+            check(own > 0, f"the {label} never launched the {name} kernel")
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()

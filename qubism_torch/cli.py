@@ -2,10 +2,10 @@
 
 Counterpart of reference app/Main.hs: ``python -m qubism_torch file.qasm``
 evaluates a file and prints "Done.". Ported flags: ``--seed``, ``--shots``,
-``--dump-state``, ``--compile``, ``--fuse-width``, ``--reference-compat``,
-``-I``, ``--include-base`` and ``--verbose``. Every other flag of the JAX
-package's CLI (``--mesh``, ``--observable``, ``--backend``, ...), and the
-REPL (no file), exit with code 2 and "not ported yet".
+``--dump-state``, ``--compile``, ``--fuse-width``, ``--mesh``,
+``--reference-compat``, ``-I``, ``--include-base`` and ``--verbose``. Every
+other flag of the JAX package's CLI (``--observable``, ``--backend``, ...),
+and the REPL (no file), exit with code 2 and "not ported yet".
 """
 
 from __future__ import annotations
@@ -34,6 +34,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="run the program as fused segments of the compiled "
                         "engine (registers are laid out in one state vector "
                         "up front)")
+    p.add_argument("--mesh", type=int, default=None, metavar="D",
+                   help="run over a mesh of D GPUs (amplitude sharding with "
+                        "device <-> local qubit-relabelling swaps); implies "
+                        "--compile")
     p.add_argument("--fuse-width", type=int, default=5, metavar="K",
                    help="max qubits per fused dense block in --compile mode "
                         "(default 5; the kernels cap it at 4)")
@@ -69,7 +73,8 @@ def _apply_flags(args):
 
 def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
               shots: int | None = None, out=None, source: str | None = None,
-              inspect=None, compile_mode: bool = False, fuse_width: int = 5) -> int:
+              inspect=None, compile_mode: bool = False, fuse_width: int = 5,
+              mesh=None) -> int:
     """Evaluate a file (reference ``evalFile``, Main.hs:23-32). Returns the
     exit code. ``source``, when given, is parsed as the text of ``path``
     (includes resolve relative to it) instead of reading the file;
@@ -77,7 +82,10 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
     (in compile mode, one state vector holding every register).
     ``compile_mode`` runs the program through
     :class:`~qubism_torch.run.compiler.CompiledProgram` with dense blocks of
-    at most ``fuse_width`` qubits."""
+    at most ``fuse_width`` qubits; ``mesh`` (a shard count or a device
+    sequence) runs it sharded (:meth:`CompiledProgram.run_sharded`), and
+    ``inspect`` then sees the cregs but no state vector. A mesh of more GPUs
+    than the machine has exits 2."""
     out = out or sys.stdout
     if source is None:
         try:
@@ -99,7 +107,17 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
         print(f"qubism: {e}", file=out)
         return 2
     try:
-        if compile_mode:
+        if mesh:
+            from .run.compiler import CompiledProgram
+
+            prog = CompiledProgram(ast, max_block=fuse_width)
+            try:
+                devices = prog.mesh_devices(mesh)
+            except ValueError as e:
+                print(f"qubism: --mesh {mesh}: {e}", file=out)
+                return 2
+            ps = _run_mesh(prog, devices, seed, dump_state, shots, out)
+        elif compile_mode:
             from .run.compiler import CompiledProgram
 
             prog = CompiledProgram(ast, max_block=fuse_width)
@@ -111,7 +129,7 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
             ps = run_program(ast, seed=seed)
             if dump_state:
                 out.write(ps.pretty())
-        if shots:
+        if shots and not mesh:  # a mesh run printed its own
             _print_shot_counts(ps, shots, out)
     except QasmRuntimeError as e:
         print(e, file=out)
@@ -120,6 +138,28 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
         inspect(ps)
     print("Done.", file=out)
     return 0
+
+
+def _run_mesh(prog, devices, seed, dump_state, shots, out) -> ProgState:
+    """Run a program over the mesh of ``devices``, print its dump and shot
+    counts as the JAX package's --mesh path does; returns its cregs as a
+    ProgState with no state vector."""
+    import numpy as np
+
+    from .utils.profiling import vlog
+
+    sim, cregs, gen = prog.run_sharded(mesh=devices, seed=seed, dump_writer=out.write)
+    if sim is not None:
+        vlog(f"mesh run: {sim.D} device(s) x 2^{sim.w} bank(s), {sim.m} local "
+             f"qubits/bank, {sim.dispatch_count} segments, swaps and measurements")
+    if dump_state and prog.n:
+        out.write(prog._pretty_for(prog.sim_state(sim), cregs))
+    if shots and prog.n:
+        vals, counts = np.unique(sim.sample(shots, gen), return_counts=True)
+        print(f"Counts for state vector {prog.name} ({shots} shots):", file=out)
+        for v, c in zip(vals, counts):
+            print(f"  |{format(int(v), f'0{prog.n}b')}>: {int(c)}", file=out)
+    return ProgState(cregs=dict(cregs), gen=gen)
 
 
 def _print_shot_counts(ps: ProgState, shots: int, out):
@@ -144,7 +184,7 @@ def main(argv=None) -> int:
     _apply_flags(args)
     return eval_file(args.file, seed=args.seed, dump_state=args.dump_state,
                      shots=args.shots, compile_mode=args.compile_mode,
-                     fuse_width=args.fuse_width)
+                     fuse_width=args.fuse_width, mesh=args.mesh)
 
 
 if __name__ == "__main__":

@@ -28,6 +28,9 @@ These are the fusion semantics of qubism_tpu/ops/fusion.py on its kernel
 path (``max_block <= 4``, ``mixed_lane=True``), at every n; what that
 module sized for the TPU (its pass-cost model, axis-slot caps, virtual
 shards, chunked jits and operand caches) is not carried over.
+``keep_separate_below`` and :func:`split_op_virtual`, which the JAX package
+shares between its virtual shards and the mesh's banks, serve the mesh's
+banks here (:mod:`qubism_torch.parallel.sharded`).
 """
 
 from __future__ import annotations
@@ -121,26 +124,32 @@ def _prim_sorted_diag(p: Prim) -> DiagLayer:
     return DiagLayer(((d, tuple(sorted(p.targets))),))
 
 
-def _union_ok(union: tuple[int, ...], n: int, max_block: int) -> bool:
+def _union_ok(union: tuple[int, ...], n: int, max_block: int,
+              keep_separate_below: int = 0) -> bool:
     """Fusion admission by region: pure-lane unions merge at any size (one
     lane matrix); row and mixed row+lane unions up to ``max_block``
-    targets."""
+    targets. A union of two or more targets that touches a qubit below
+    ``keep_separate_below`` (a bank bit of the mesh path) never merges."""
+    if len(union) > 1 and any(t < keep_separate_below for t in union):
+        return False
     b = max(n - _apply._COL, 0)
     if all(t >= b for t in union):
         return True
     return len(union) <= max_block
 
 
-def _stage_prepass(prims, n: int):
+def _stage_prepass(prims, n: int, keep_separate_below: int = 0):
     """Detect [1q dense on row qubit q] + [run of 2q diagonals (q, j), j > q,
-    with an identity q = 0 branch] and fuse each into a StageOp."""
+    with an identity q = 0 branch] and fuse each into a StageOp. No stage
+    starts on a qubit below ``keep_separate_below``."""
     b_lane = max(n - _apply._COL, 0)
     out: list = []
     prims = list(prims)
     i = 0
     while i < len(prims):
         p = prims[i]
-        if not p.diag and len(p.targets) == 1 and p.targets[0] < b_lane:
+        if (not p.diag and len(p.targets) == 1
+                and keep_separate_below <= p.targets[0] < b_lane):
             q = p.targets[0]
             ladder = []
             j = i + 1
@@ -167,12 +176,13 @@ def _stage_prepass(prims, n: int):
     return out
 
 
-def _layer1q_prepass(items, n: int):
+def _layer1q_prepass(items, n: int, keep_separate_below: int = 0):
     """Group runs of consecutive dense 1q prims on DISTINCT row qubits into
     Layer1QOp passes of at most _LAYER1Q_MAX gates. Disjoint 1q gates
     commute, so a run may be cut anywhere. Runs shorter than 4 stay prims:
     greedy dense fusion handles those at the same cost and can absorb
-    neighboring 2q gates. StageOps break runs and pass through."""
+    neighboring 2q gates. StageOps, and gates on qubits below
+    ``keep_separate_below``, break runs and pass through."""
     b_lane = max(n - _apply._COL, 0)
     out: list = []
     run: list = []  # [(u, q)]
@@ -191,7 +201,7 @@ def _layer1q_prepass(items, n: int):
 
     for p in items:
         ok = (isinstance(p, Prim) and not p.diag and len(p.targets) == 1
-              and p.targets[0] < b_lane)
+              and keep_separate_below <= p.targets[0] < b_lane)
         if not ok:
             flush()
             out.append(p)
@@ -205,15 +215,19 @@ def _layer1q_prepass(items, n: int):
 
 
 def fuse(prims, n: int, max_block: int = DEFAULT_MAX_BLOCK,
-         stage_group: int | None = None) -> list:
+         stage_group: int | None = None, keep_separate_below: int = 0) -> list:
     """Greedy fusion: prims -> [StageBlockOp | Layer1QOp | DenseOp |
     DiagLayer]. ``max_block`` is clamped to 4, the widest dense block the
-    gate kernel takes; ``stage_group`` (1..4) caps the stages per block."""
+    gate kernel takes; ``stage_group`` (1..4) caps the stages per block.
+    A prim that touches a qubit below ``keep_separate_below`` (the bank bits
+    of the mesh path, which :func:`split_op_virtual` splits off) merges with
+    no other prim, though diagonals still join a diagonal layer."""
     max_block = min(max_block, MAX_BLOCK)
     stage_group = STAGE_GROUP if stage_group is None else stage_group
     if not 1 <= stage_group <= 4:
         raise ValueError(f"stage_group {stage_group}: 1..4 supported")
-    items = _layer1q_prepass(_stage_prepass(prims, n), n)
+    items = _layer1q_prepass(_stage_prepass(prims, n, keep_separate_below), n,
+                             keep_separate_below)
     blocks: list = []
     cur_u: np.ndarray | None = None
     cur_t: tuple[int, ...] = ()
@@ -240,7 +254,7 @@ def fuse(prims, n: int, max_block: int = DEFAULT_MAX_BLOCK,
             cur_u, cur_t = u, t
             continue
         union = tuple(sorted(set(cur_t) | set(t)))
-        if _union_ok(union, n, max_block):
+        if _union_ok(union, n, max_block, keep_separate_below):
             a = _apply._expand_np(cur_u, cur_t, union)
             b = _apply._expand_np(u, t, union)
             cur_u, cur_t = b @ a, union  # p applies after the block
@@ -278,6 +292,39 @@ def fuse(prims, n: int, max_block: int = DEFAULT_MAX_BLOCK,
         grouped.append(StageBlockOp(tuple((s.u, s.q, s.factors) for s in grp)))
         i += len(grp)
     return grouped
+
+
+def split_op_virtual(op, v: int):
+    """Specialize one fused op on v + m qubits, whose first v qubits are
+    bank bits, for each of the 2^v banks. Returns ("per_shard", [op for
+    bank s, on the m local qubits]) or, for a dense op on a bank bit,
+    ("cross", op) for the caller's cross-bank plans. A diagonal factor on
+    bank bits is fixed to each bank's values of those bits."""
+    if isinstance(op, StageBlockOp):
+        # fuse(keep_separate_below=v) starts no stage on a bank bit, and
+        # every ladder bit lies above its stage's qubit
+        shifted = StageBlockOp(tuple(
+            (u, q - v, tuple((d, (t[0] - v, t[1] - v)) for d, t in factors))
+            for u, q, factors in op.stages))
+        return ("per_shard", [shifted] * (1 << v))
+    if isinstance(op, Layer1QOp):
+        shifted = Layer1QOp(tuple((u, q - v) for u, q in op.gates))
+        return ("per_shard", [shifted] * (1 << v))
+    if isinstance(op, DiagLayer):
+        per = []
+        for s in range(1 << v):
+            facs = []
+            for d, targets in op.factors:
+                if any(t < v for t in targets):
+                    idx = tuple(((s >> (v - 1 - t)) & 1) if t < v else slice(None)
+                                for t in targets)
+                    d = np.asarray(d).reshape((2,) * len(targets))[idx].reshape(-1)
+                facs.append((d, tuple(t - v for t in targets if t >= v)))
+            per.append(DiagLayer(tuple(facs)))
+        return ("per_shard", per)
+    if all(t >= v for t in op.targets):
+        return ("per_shard", [DenseOp(op.u, tuple(t - v for t in op.targets))] * (1 << v))
+    return ("cross", op)
 
 
 def plan(op, n: int, device="cpu"):

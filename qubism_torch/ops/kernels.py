@@ -1,11 +1,12 @@
-"""The five state-vector kernels of the engine.
+"""The six state-vector kernels of the engine.
 
 Each kernel has three parts here:
 
-* a **wrapper** (``gate``, ``diag``, ``lane``, ``layer1q``, ``stage_block``)
-  that updates a state tensor in place. On a CUDA tensor it launches the
-  hand-written Hopper kernel from ``qubism_torch/csrc`` (built by
-  :mod:`.build`) or raises; on a CPU tensor it runs the plain version.
+* a **wrapper** (``gate``, ``diag``, ``lane``, ``layer1q``, ``stage_block``,
+  ``shard_butterfly``) that updates a state tensor in place. On a CUDA
+  tensor it launches the hand-written Hopper kernel from
+  ``qubism_torch/csrc`` (built by :mod:`.build`) or raises; on a CPU tensor
+  it runs the plain version.
   Nothing else selects between the two: no fallback, no size threshold.
 * a **plain version** (``*_plain``) of the same function in torch ops, on
   any device. The CPU tests use it, and ``chip_smoke.py`` holds each kernel
@@ -13,8 +14,10 @@ Each kernel has three parts here:
 * a **launch counter**, ``launches[name]``, incremented where the kernel is
   launched and nowhere else.
 
-Every wrapper takes the state (complex64, contiguous, length 2^n), its
-operands, and n, and returns the state. The operands the diag, lane and
+Every wrapper but ``shard_butterfly`` takes the state (complex64,
+contiguous, length 2^n), its operands, and n, and returns the state;
+``shard_butterfly`` takes the S banks of the mesh path in place of the state
+(:mod:`qubism_torch.parallel.sharded`). The operands the diag, lane and
 stage kernels read from device memory can be prepared once
 (:func:`diag_prepare`, :func:`lane_prepare`, :func:`stage_block_prepare`),
 so that a compiled circuit launches kernels without a host-to-device copy;
@@ -33,7 +36,7 @@ import torch
 from .apply import _COL, as_operand, canonical_device, target_view
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-launches = {"gate": 0, "diag": 0, "lane": 0, "layer1q": 0, "stage": 0}
+launches = {"gate": 0, "diag": 0, "lane": 0, "layer1q": 0, "stage": 0, "butterfly": 0}
 
 #: widest diagonal factor held as a table (2^7 entries: the widest factor
 #: fusion emits, a pure-lane union). Wider factors are split exactly into
@@ -338,6 +341,8 @@ def _diag_passes(factors, n: int):
         if len(targets) > _TABLE_BITS_MAX:
             items.extend((0, np.array([p]), (m, v))
                          for m, v, p in _mask_factors((d, targets), n))
+        elif not targets:  # a scalar (a bank's share of a bank-bit diagonal)
+            items.append((0, d[:1], (0, 0)))
         else:
             items.append((len(targets), d, _positions(targets, n)))
     passes, cur, entries = [], [], 0
@@ -529,11 +534,86 @@ def stage_block(state: torch.Tensor, plan: StagePlan, n: int) -> torch.Tensor:
         _ptr(state), n, k, _host(pos), _host(coef), tab, plan.chunks, d, s))
 
 
-#: kernel name -> (wrapper, plain version); both take (state, *operands, n)
+# ---------------------------------------------------------------------------
+# K6: a dense gate across whole banks (the mesh path's bank bits)
+# ---------------------------------------------------------------------------
+
+_BUTTERFLY_SIZES = (2, 4, 8, 16)
+
+
+@dataclass(frozen=True)
+class ButterflyPlan:
+    """A cross-bank gate's operands: ``u`` (S, S) complex128 on the host and
+    ``coef``, U as complex64, which the kernel takes in its parameters (no
+    device copy)."""
+
+    u: np.ndarray
+    coef: np.ndarray
+    device: torch.device
+
+
+def shard_butterfly_prepare(u, device) -> ButterflyPlan:
+    """Check an S x S gate, S in (2, 4, 8, 16), for :func:`shard_butterfly`
+    on ``device``."""
+    u = np.asarray(u, dtype=np.complex128)
+    if u.ndim != 2 or u.shape[0] != u.shape[1] or u.shape[0] not in _BUTTERFLY_SIZES:
+        raise ValueError(f"shard_butterfly: matrix shape {u.shape}; S x S with S in "
+                         f"{_BUTTERFLY_SIZES} supported")
+    return ButterflyPlan(u, np.ascontiguousarray(u, dtype=np.complex64),
+                         canonical_device(device))
+
+
+def _check_banks(banks, S: int, m: int):
+    if len(banks) != S:
+        raise ValueError(f"shard_butterfly: {len(banks)} banks for a {S} x {S} gate")
+    for b in banks:
+        _check_state(b, m)
+        if b.device != banks[0].device:
+            raise ValueError(f"shard_butterfly: banks on {b.device} and {banks[0].device}")
+    starts = sorted(b.data_ptr() for b in banks)
+    if any(hi - lo < 8 << m for lo, hi in zip(starts, starts[1:])):
+        raise ValueError("shard_butterfly: banks overlap")
+
+
+def shard_butterfly_plain(banks, u, m: int):
+    """bank_i <- sum_j U[i, j] bank_j over the stacked banks (``u`` a matrix
+    or a :class:`ButterflyPlan`); returns the banks."""
+    if isinstance(u, ButterflyPlan):
+        u = u.u
+    x = torch.stack([b.view(-1) for b in banks])
+    y = as_operand(u, x) @ x
+    for b, row in zip(banks, y):
+        b.view(-1).copy_(row)
+    return banks
+
+
+def shard_butterfly(banks, plan: ButterflyPlan, m: int):
+    """A dense S x S gate across S banks of 2^m amplitudes each (all on one
+    device, none overlapping), in place: bank i becomes sum_j U[i, j] bank j.
+    ``plan`` is a :class:`ButterflyPlan` or the matrix."""
+    if not isinstance(plan, ButterflyPlan):
+        plan = shard_butterfly_prepare(plan, banks[0].device)
+    S = plan.u.shape[0]
+    _check_banks(banks, S, m)
+    if banks[0].device.type == "cpu":
+        return shard_butterfly_plain(banks, plan.u, m)
+    _check_plan_device("butterfly", plan.device, banks[0])
+    if m < 1 or any(b.data_ptr() % 16 for b in banks):
+        raise ValueError("shard_butterfly: the kernel takes banks of >= 2 amplitudes "
+                         "aligned to 16 bytes")
+    ptrs = np.array([b.data_ptr() for b in banks], dtype=np.uint64)
+    _launch(banks[0], "butterfly", lambda lib, d, s: lib.qk_butterfly(
+        _host(ptrs), S, m, _host(plan.coef), d, s))
+    return banks
+
+
+#: kernel name -> (wrapper, plain version); both take (state, *operands, n),
+#: except the butterfly's, which take (banks, plan, m)
 KERNEL_FNS = {
     "gate": (gate, gate_plain),
     "diag": (diag, diag_plain),
     "lane": (lane, lane_plain),
     "layer1q": (layer1q, layer1q_plain),
     "stage": (stage_block, stage_block_plain),
+    "butterfly": (shard_butterfly, shard_butterfly_plain),
 }

@@ -21,8 +21,11 @@ import torch
 from ..config import config
 
 
-def _draw(gen: torch.Generator | None, k: int) -> np.ndarray:
-    """k float32 uniforms in [0, 1) from the CPU generator, as float64."""
+def draw(gen: torch.Generator | None, k: int, uniforms=None) -> np.ndarray:
+    """k float32 uniforms in [0, 1) from the CPU generator, as float64, or
+    the given ``uniforms``."""
+    if uniforms is not None:
+        return np.asarray(uniforms, np.float64)
     return torch.rand(k, generator=gen, dtype=torch.float32).numpy().astype(np.float64)
 
 
@@ -57,7 +60,7 @@ def _threshold(p1: float) -> float:
 def measure_qubit(state: torch.Tensor, gen: torch.Generator | None, q: int, n: int,
                   uniform: float | None = None) -> int:
     """Sample qubit q and collapse the state in place. Returns the bit."""
-    r = _draw(gen, 1)[0] if uniform is None else uniform
+    r = draw(gen, 1)[0] if uniform is None else uniform
     outcome = int(r < _threshold(prob_one(state, q, n)))
     collapse(state, outcome, q, n)
     return outcome
@@ -135,7 +138,7 @@ def measure_qubits(state: torch.Tensor, gen: torch.Generator | None, qubits, n: 
     place. Each chunk of up to 16 qubits is one marginal-table sweep, the
     ancestral draws on the host, and one projection. Returns the bits."""
     qubits = tuple(qubits)
-    u = _draw(gen, len(qubits)) if uniforms is None else np.asarray(uniforms, np.float64)
+    u = draw(gen, len(qubits), uniforms)
     if config.force_sequential_measure or len(set(qubits)) != len(qubits):
         return [measure_qubit(state, None, q, n, uniform=u[i])
                 for i, q in enumerate(qubits)]

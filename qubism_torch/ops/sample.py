@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .measure import draw
+
 #: leaf row width of the two-level search
 _LEAF_BITS = 11
 #: amplitudes per chunk when summing row masses (bounds the float temps)
@@ -31,17 +33,17 @@ def _row_masses(state: torch.Tensor, width: int) -> torch.Tensor:
     return torch.cat(out)
 
 
-def sample_indices(state: torch.Tensor, n: int, shots: int,
-                   gen: torch.Generator | None = None, uniforms=None) -> np.ndarray:
-    """Sample ``shots`` basis-state indices; (shots,) int64 on the host.
-    ``uniforms`` (shots floats in [0, 1)) replaces the generator's draws."""
-    if uniforms is None:
-        uniforms = torch.rand(shots, generator=gen, dtype=torch.float32)
-    u = torch.as_tensor(np.asarray(uniforms, dtype=np.float64)).to(state.device)
+def row_cdf(state: torch.Tensor, n: int) -> torch.Tensor:
+    """The float64 inclusive prefix sum of the row masses (rows of
+    2^min(n, 11) amplitudes); its last entry is the state's total mass."""
+    return torch.cumsum(_row_masses(state, 1 << min(n, _LEAF_BITS)), 0)
+
+
+def search(state: torch.Tensor, n: int, target: torch.Tensor, cdf: torch.Tensor) -> torch.Tensor:
+    """For each float64 mass ``target`` in [0, total), the first index whose
+    inclusive prefix mass exceeds it (``cdf`` from :func:`row_cdf`), int64 on
+    the state's device."""
     width = 1 << min(n, _LEAF_BITS)
-    masses = _row_masses(state, width)
-    cdf = torch.cumsum(masses, 0)
-    target = u * cdf[-1]
     row = torch.searchsorted(cdf, target, right=True).clamp_(max=cdf.numel() - 1)
     resid = target - torch.where(row > 0, cdf[(row - 1).clamp_(min=0)],
                                  torch.zeros_like(target))
@@ -49,7 +51,16 @@ def sample_indices(state: torch.Tensor, n: int, shots: int,
     leaf_cdf = torch.cumsum(leaf, 1)
     col = torch.searchsorted(leaf_cdf, resid[:, None], right=True)[:, 0]
     col.clamp_(max=width - 1)
-    return (row.to(torch.int64) * width + col.to(torch.int64)).cpu().numpy()
+    return row.to(torch.int64) * width + col.to(torch.int64)
+
+
+def sample_indices(state: torch.Tensor, n: int, shots: int,
+                   gen: torch.Generator | None = None, uniforms=None) -> np.ndarray:
+    """Sample ``shots`` basis-state indices; (shots,) int64 on the host.
+    ``uniforms`` (shots floats in [0, 1)) replaces the generator's draws."""
+    u = torch.from_numpy(draw(gen, shots, uniforms)).to(state.device)
+    cdf = row_cdf(state, n)
+    return search(state, n, u * cdf[-1], cdf).cpu().numpy()
 
 
 def sample_counts(state: torch.Tensor, n: int, shots: int,

@@ -1,6 +1,8 @@
 """Whole-program compiler: QASM AST -> event stream -> fused segments.
 
-Counterpart of qubism_tpu/run/compiler.py, the CLI's ``--compile`` path.
+Counterpart of qubism_tpu/run/compiler.py, the CLI's ``--compile`` path
+(:meth:`CompiledProgram.run`) and ``--mesh`` path
+(:meth:`CompiledProgram.run_sharded`).
 The interpreter (:mod:`qubism_torch.run.interpreter`) is the semantics
 reference; this module statically elaborates the program (user gates
 expanded, parameters bound, register views resolved to absolute qubits)
@@ -239,6 +241,68 @@ class CompiledProgram:
 
         exec_events(self.events)
         return state, cregs, gen
+
+    def mesh_devices(self, mesh=None):
+        """The devices of a mesh run: ``mesh`` as given when it is a device
+        sequence, else :func:`~qubism_torch.parallel.make_mesh` of that
+        many shards (all GPUs for None), cut to at most 2^(n-2) shards so
+        that every shard keeps the 2 local qubits a 2-qubit gate needs.
+        Raises ValueError when the machine has too few GPUs."""
+        from ..parallel import make_mesh
+
+        if mesh is not None and not isinstance(mesh, int):
+            return tuple(mesh)
+        limit = 1 << max(self.n - 2, 0)
+        devices = make_mesh(None if mesh is None else min(mesh, limit))
+        return devices if len(devices) <= limit else make_mesh(limit)
+
+    def run_sharded(self, mesh=None, seed: int | None = None, dump_writer=None,
+                    banks: int | None = None):
+        """Execute from |0...0> over a mesh of devices
+        (:meth:`mesh_devices`) through :class:`~qubism_torch.parallel.ShardedSim`,
+        with 2^``banks`` banks per shard (default ``default_banks``).
+        Returns (sim, cregs dict, generator); sim is None for a program with
+        no qubits."""
+        from ..parallel import ShardedSim
+
+        devices = self.mesh_devices(mesh)
+        dump_writer = dump_writer or (lambda s: None)
+        gen = torch.Generator().manual_seed(0 if seed is None else seed)
+        sim = ShardedSim(self.n, devices, banks=banks) if self.n else None
+        cregs = dict(self.cregs0)
+
+        def exec_events(events):
+            for ev in events:
+                if isinstance(ev, EvGates):
+                    sim.apply(ev.prims)
+                elif isinstance(ev, EvMeasure):
+                    bits = sim.measure_qubits(ev.qubits, gen)
+                    off = 0
+                    for creg, bit_index, count in ev.writes:
+                        if bit_index is None:
+                            cregs[creg] = CReg.of(bits[off:off + count])
+                        else:
+                            cregs[creg] = cregs[creg].set_bit(bit_index, bits[off])
+                        off += count
+                elif isinstance(ev, EvReset):
+                    for q in ev.qubits:
+                        sim.collapse(q, 0)
+                elif isinstance(ev, EvCond):
+                    if cregs[ev.creg].to_natural() == ev.value:
+                        exec_events(ev.body)
+                elif isinstance(ev, EvDump):
+                    dump_writer(self._pretty_for(self.sim_state(sim), cregs))
+
+        exec_events(self.events)
+        return sim, cregs, gen
+
+    def sim_state(self, sim) -> StateVec | None:
+        """A mesh run's state gathered into one host StateVec (for dumps;
+        small n only)."""
+        if sim is None:
+            return None
+        amps = sim.amplitudes().astype(np.complex64)
+        return StateVec(self.n, torch.from_numpy(amps))
 
     def prog_state(self, state, cregs, gen) -> ProgState:
         """The result of :meth:`run` as an interpreter ProgState: one state

@@ -232,7 +232,7 @@ def test_cli_compile_flags(tmp_path, capsys):
     assert "Counts for state vector q (64 shots):" in out
     counts = [line.strip() for line in out.splitlines() if line.strip().startswith("|")]
     assert counts and all(c.startswith(("|000>", "|111>")) for c in counts)
-    assert tcli.main([path, "--compile", "--mesh", "2"]) == 2
+    assert tcli.main([path, "--compile", "--observable", "ZZ"]) == 2
     assert "not ported yet" in capsys.readouterr().err
 
 

@@ -108,3 +108,67 @@ def test_fuse_semantics():
     ops = TF.fuse(cu1, n)
     assert len(ops) == 1 and isinstance(ops[0], TF.DiagLayer)
     np.testing.assert_allclose(ops[0].factors[0][0], [1, 1, 1, np.exp(0.4j)], atol=1e-12)
+
+
+def _canon_op(op):
+    """A fused op of either package as (class name, nested tuple of targets
+    and complex arrays), for a structural comparison."""
+    kind = type(op).__name__
+    if kind == "DenseOp":
+        return kind, (op.targets, np.asarray(op.u))
+    if kind == "DiagLayer":
+        return kind, tuple((tuple(t), np.asarray(d)) for d, t in op.factors)
+    if kind == "Layer1QOp":
+        return kind, tuple((q, np.asarray(u)) for u, q in op.gates)
+    assert kind == "StageBlockOp", kind
+    return kind, tuple((q, np.asarray(u), tuple((tuple(t), np.asarray(d)) for d, t in f))
+                       for u, q, f in op.stages)
+
+
+def _same(a, b):
+    if isinstance(a, np.ndarray):
+        return a.shape == np.shape(b) and np.allclose(a, b, rtol=0, atol=1e-12)
+    if isinstance(a, (tuple, list)):
+        return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def _stream(family, n):
+    import qubism_tpu.models.circuits as JC
+    from tests.test_fusion import random_prims
+
+    return {"qft": lambda: JC.qft_prims(n), "ghz": lambda: JC.ghz_prims(n),
+            "brickwork": lambda: JC.brickwork_prims(n, 3, seed=5),
+            "random": lambda: random_prims(n, 60, 9)}[family]()
+
+
+@pytest.mark.parametrize("family", ["qft", "ghz", "brickwork", "random"])
+@pytest.mark.parametrize("w", [0, 1, 2])
+def test_bank_fusion_and_split_match_jax(family, w):
+    """fuse(keep_separate_below=w) then split_op_virtual(op, w), as the mesh
+    path lowers a segment, against the JAX package's mixed_lane fusion.
+    max_block=3 on both sides: at 4 targets the JAX fusion adds its TPU pass
+    cost model (_merge_pays), which the port does not carry."""
+    n = 10
+    jprims = _stream(family, n)
+    tprims = [TPrim(p.u, p.targets, p.diag) for p in jprims]
+    jops = JF.fuse(jprims, n, max_block=3, keep_separate_below=w,
+                   stage_group=TF.STAGE_GROUP, mixed_lane=True)
+    tops = TF.fuse(tprims, n, max_block=3, keep_separate_below=w)
+    assert len(tops) == len(jops)
+    cross = 0
+    for jop, top in zip(jops, tops):
+        assert _same(_canon_op(top), _canon_op(jop))
+        jkind, jpay = JF.split_op_virtual(jop, w)
+        tkind, tpay = TF.split_op_virtual(top, w)
+        assert tkind == jkind
+        if tkind == "cross":
+            cross += 1
+            assert _same(_canon_op(tpay), _canon_op(jpay))
+            assert any(t < w for t in tpay.targets)
+        else:
+            assert len(tpay) == len(jpay) == 1 << w
+            for a, b in zip(tpay, jpay):
+                assert _same(_canon_op(a), _canon_op(b))
+    assert (cross > 0) == (w > 0)

@@ -310,7 +310,8 @@ def test_main_flags(capsys):
     path = os.path.join(EXAMPLES, "rippleCarryAdder.qasm")
     assert tcli.main([path, "--seed", "1", "--dump-state"]) == 0
     assert "CReg ans[5] = 00001" in capsys.readouterr().out
-    for argv in ([path, "--backend", "mps"], [path, "--mesh", "2"], [path, "--observable", "ZZ"], []):
+    for argv in ([path, "--backend", "mps"], [path, "--dtype", "complex128"],
+                 [path, "--observable", "ZZ"], []):
         assert tcli.main(argv) == 2
         assert "not ported yet" in capsys.readouterr().err
 
@@ -318,7 +319,8 @@ def test_main_flags(capsys):
 def test_package_imports_no_jax():
     code = ("import sys, qubism_torch, qubism_torch.cli, qubism_torch.ops.kernels, "
             "qubism_torch.ops.fusion, qubism_torch.ops.build, qubism_torch.models.circuits, "
-            "qubism_torch.run.compiler, qubism_torch.session, qubism_torch.core.algebra; "
+            "qubism_torch.run.compiler, qubism_torch.session, qubism_torch.core.algebra, "
+            "qubism_torch.parallel; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
             "assert not any(m.startswith('qubism_tpu') for m in sys.modules)")
     env = dict(os.environ, QUBISM_TORCH_DEVICE="cpu")

@@ -172,7 +172,9 @@ def test_cpu_tensors_never_count_a_launch():
     TK.layer1q(state, ((np.eye(2), 1), (np.eye(2), 0)), 9)
     ladder = ((np.array([1, 1, 1, 1j]), (0, 5)),)
     TK.stage_block(state, TK.stage_block_prepare(((np.eye(2), 0, ladder),), 9, "cpu"), 9)
-    assert TK.launches == {"gate": 0, "diag": 0, "lane": 0, "layer1q": 0, "stage": 0}
+    TK.shard_butterfly(list(state.view(2, -1)), np.eye(2)[::-1], 8)
+    assert TK.launches == {"gate": 0, "diag": 0, "lane": 0, "layer1q": 0, "stage": 0,
+                           "butterfly": 0}
 
 
 @pytest.mark.parametrize("targets", [(3, 1), (5, 0, 2), (6,)])
