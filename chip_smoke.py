@@ -6,12 +6,23 @@
 Run from the root of the repository, on a machine with a CUDA GPU and nvcc.
 It builds the port's CUDA kernels from ``qubism_torch/csrc``, holds each
 against its plain PyTorch version on the card (n = 20 and n = 30, relative
-L2 <= 1e-5) and times both at n = 28. Then it drives three paths, each with
-the launch counters set to 0 just before it and read just after:
+L2 <= 1e-5; <= 1e-6 for the lane and diag kernels, every case of theirs at
+both widths; the lane kernel also on a 5-qubit state (its small-state
+path), on one row and on part of a tile (7 and 10 qubits); the diag kernel
+also on states of 0 to 3 qubits, where a thread owns fewer amplitudes)
+and times both at n = 28 (diag at three shapes: one 2-qubit factor, 8
+factors of 4 qubits, a 27-factor controlled-phase ladder; lane beside one
+``torch.matmul``; a lane or diag call prepares and uploads its operands, so
+their lines also give the kernel on operands prepared once). Then it drives
+five paths, each with the launch counters set to 0 just before it and read
+just after (a ``phase <path>: diag launches by (factors, widest k)`` line
+gives the shapes of its diag passes):
 
 * the OpenQASM file path through ``qubism_torch.cli.eval_file``: the example
   goldens, GHZ-30 and brickwork-30 with 8192 shots, QFT-28 and a 28-qubit
-  adder, each checked;
+  adder, each checked (``main path <program>`` gives the seconds of that
+  first run; after the five paths the four wide programs run three times
+  more, ``file path warm <program>``);
 * the compiled engine: ``CompiledCircuit`` on QFT-30 (uniform magnitudes,
   warm wall seconds and device ms), QFT-28 at stage groups 2 and 4,
   GHZ-30 and brickwork-30 with 8192 shots, and
@@ -42,7 +53,8 @@ applied by the plain versions, and the states compared.
 The last line of standard output is one JSON object,
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
 each with its bound (the least time of one H100 SXM for the bytes and
-float32 operations of the timed call) and, where one PyTorch call computes
+float32 operations of the timed call; for the lane kernel, three TF32
+products on the tensor cores) and, where one PyTorch call computes
 the same function, that call's time. Any failed check exits non-zero
 without that line. No JAX is imported.
 """
@@ -60,10 +72,17 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 EXAMPLES = os.path.join(HERE, "examples")
 TOL = 1e-5  # relative L2 between a kernel and its plain version (complex64)
+#: the same for the lane and diag kernels (the accuracy of the plain fp32
+#: product, which the three TF32 products of the lane kernel must keep)
+TOL_TIGHT = 1e-6
+TIGHT = ("lane", "diag")
 DEV = "cuda"
 #: widths: kernel checks, timing, the 30-qubit GHZ/brickwork/QFT, QFT, adder
 #: operands, the DSL's QFT
 N_CHECK, N_WIDE, N_TIME, N_BIG, N_QFT, ADDER_WIDTH, N_DSL = 20, 30, 28, 30, 28, 13, 20
+#: a state of fewer amplitudes than one lane block, and one of fewer rows
+#: than a tile of the lane kernel
+N_SMALL, N_PART = 5, 10
 SHOTS = 8192
 
 #: kernel name -> (CUDA source, the TPU kernel it replaces)
@@ -169,15 +188,70 @@ def stage_stages(n, q0, k, rng, off_one=False, stride=1):
     return tuple(stages)
 
 
+def diag_cases(n, rng):
+    """Factor lists for the diag kernel at n qubits: the mixed case first
+    (low, middle and high targets and the full lane table), a one-point
+    diagonal wide enough for the host split, one factor of 1 and of 2 qubits
+    (on index bit 0, on a thread bit, on high bits: the kernel without
+    descriptors), a 64-factor pass, factors that all hold the last qubit
+    (nothing a thread can hoist), the mesh path's ladder (n - 1 two-qubit
+    factors sharing qubit 0), and 33 seven-qubit tables (two launches)."""
+    import numpy as np
+
+    hi = n - 1
+
+    def ph(k):
+        return np.exp(1j * rng.uniform(0, 2 * math.pi, 1 << k))
+
+    one_point = np.ones(256, dtype=complex)
+    one_point[int(rng.integers(256))] = -1
+    cases = [
+        ((np.array([1, 1, 1, -1], dtype=complex), (0, hi)), (ph(3), (2, n // 2, hi - 1)),
+         (ph(4), (n - 9, n - 8, n - 7, n - 6)), (ph(7), tuple(range(n - 7, n)))),
+        ((one_point, (0, 3, n // 2, n - 8, n - 6, n - 4, n - 2, hi)),),
+    ]
+    cases += [((ph(len(t)), t),) for t in
+              [(hi,), (hi - 6,), (0,), (2, hi), (hi - 7, hi - 6), (1, 0)]]
+    cases.append(tuple((ph(1 + f % 2), ((f * 7) % n,) if f % 2 == 0
+                        else ((f * 7) % n, (f * 7 + 3) % n)) for f in range(64)))
+    cases.append(tuple((ph(3), (hi - 5 - f, hi - 3 + f % 3, hi)) for f in range(5))
+                 + ((ph(4), (hi - 3, hi - 2, hi - 1, hi)),))
+    cases.append(tuple((np.array([1, 1, 1, np.exp(1j * math.pi / (1 << min(j, 40)))]), (0, j))
+                       for j in range(1, n)))
+    cases.append(tuple((ph(7), tuple(sorted(int(q) for q in rng.choice(n, 7, replace=False))))
+                       for _ in range(33)))
+    return cases
+
+
+def lane_matrices(n, rng):
+    """Lane-block matrices at n >= 7 qubits: a dense 7-qubit unitary first, a
+    1- and a 2-qubit gate expanded over the block, a permutation (a CX
+    chain), and a matrix whose entries span magnitudes 1e-4 .. 1 (where one
+    TF32 product would lose the small ones)."""
+    import numpy as np
+
+    from qubism_torch.ops.apply import expand_for_view
+
+    out = [expand_for_view(unitary(len(t), rng), n, t)
+           for t in [tuple(range(n - 7, n)), (n - 1,), (n - 6, n - 2)]]
+    cx = np.eye(4, dtype=complex)[[0, 1, 3, 2]]
+    chain = np.eye(128, dtype=complex)
+    for q in range(n - 7, n - 1):
+        chain = expand_for_view(cx, n, (q, q + 1)) @ chain
+    out.append(chain)
+    out.append(10.0 ** rng.uniform(-4, 0, (128, 128))
+               * np.exp(1j * rng.uniform(0, 2 * math.pi, (128, 128))))
+    return out
+
+
 def kernel_cases(n, rng):
-    """(kernel name, operand args) cases at n qubits: low, middle and high
-    targets, permutation blocks, diagonals straddling the lane block, a
-    one-point diagonal wide enough for the host split, and stage blocks of
-    k = 4, 1, 2, 3 stages (one with d[2] != 1, one with a sparse ladder)."""
+    """(kernel name, operand args) cases at n qubits: gates on low, middle
+    and high targets and permutation blocks, :func:`diag_cases`,
+    :func:`lane_matrices`, 1q layers, and stage blocks of k = 4, 1, 2, 3
+    stages (one with d[2] != 1, one with a sparse ladder)."""
     import numpy as np
 
     from qubism_torch.ops import kernels as K
-    from qubism_torch.ops.apply import expand_for_view
 
     cx = np.eye(4, dtype=complex)[[0, 1, 3, 2]]
     ccx = np.eye(8, dtype=complex)[[0, 1, 2, 3, 4, 5, 7, 6]]
@@ -187,17 +261,8 @@ def kernel_cases(n, rng):
         cases.append(("gate", (unitary(len(t), rng), t)))
     cases.append(("gate", (cx, (3, hi - 2))))
     cases.append(("gate", (ccx, (1, n // 2, hi))))
-    one_point = np.ones(256, dtype=complex)
-    one_point[int(rng.integers(256))] = -1
-    cases.append(("diag", ((
-        (np.array([1, 1, 1, -1], dtype=complex), (0, hi)),
-        (np.exp(1j * rng.uniform(0, 2 * math.pi, 8)), (2, n // 2, hi - 1)),
-        (np.exp(1j * rng.uniform(0, 2 * math.pi, 16)), (n - 9, n - 8, n - 7, n - 6)),
-        (np.exp(1j * rng.uniform(0, 2 * math.pi, 128)), tuple(range(n - 7, n))),
-    ),)))
-    cases.append(("diag", (((one_point, (0, 3, n // 2, n - 8, n - 6, n - 4, n - 2, hi)),),)))
-    for t in [(hi,), (n - 6, n - 2), tuple(range(n - 7, n))]:
-        cases.append(("lane", (expand_for_view(unitary(len(t), rng), n, t),)))
+    cases += [("diag", (factors,)) for factors in diag_cases(n, rng)]
+    cases += [("lane", (u,)) for u in lane_matrices(n, rng)]
     for qs in [(0, 1, 2, 3), (0, 3, n // 2, n - 9, n - 8), (1, 4, 7, n - 11, n - 9, n - 8)]:
         cases.append(("layer1q", (tuple((unitary(1, rng), q) for q in qs),)))
     # k = 4 first (the one case at n = 30): at q0 = 1 its ladders reach
@@ -253,7 +318,9 @@ def time_ms(fn, state, reps=5):
 def kernel_cost(name, args, n):
     """(bytes, float32 operations) one call of kernel ``name`` needs on these
     operands: every amplitude read and written once plus the operands read
-    once; a complex multiply-add is 8 operations, a complex product 6."""
+    once; a complex multiply-add is 8 operations, a complex product 6. (The
+    lane kernel runs each of its operations as three TF32 products:
+    ``probes.bound(..., tf32x3=True)``.)"""
     import numpy as np
 
     amps = 1 << n
@@ -296,28 +363,45 @@ def phase_kernels(report):
     from qubism_torch.ops import probes as P
 
     rng = np.random.default_rng(2024)
+
+    def hold(name, args, n, seed, label):
+        tol = TOL_TIGHT if name in TIGHT else TOL
+        s = rand_state(n, seed)
+        ref = s.clone()
+        K.KERNEL_FNS[name][1](ref, *args, n)
+        K.KERNEL_FNS[name][0](s, *args, n)
+        sync()
+        err = rel_err(s, ref)
+        abs_err = float((s - ref).abs().max())
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], abs_err)
+        log(f"kernel {name} n={n} {label}: rel_l2={err:.3e} max_abs={abs_err:.3e}")
+        check(err <= tol, f"{name} disagrees with its plain version at n={n} "
+                          f"{label}: rel L2 {err:.3e} > {tol}")
+
     for n in (N_CHECK, N_WIDE):
         cases = kernel_cases(n, rng)
-        if n == N_WIDE:  # one case per kernel at full width
+        if n == N_WIDE:  # at full width: every lane and diag case, one of the others
             seen, picked = set(), []
             for name, args in cases:
-                if name not in seen:
+                if name in TIGHT or name not in seen:
                     seen.add(name)
                     picked.append((name, args))
             cases = picked
         for i, (name, args) in enumerate(cases):
-            s = rand_state(n, 100 * n + i)
-            ref = s.clone()
-            K.KERNEL_FNS[name][1](ref, *args, n)
-            K.KERNEL_FNS[name][0](s, *args, n)
-            sync()
-            err = rel_err(s, ref)
-            abs_err = float((s - ref).abs().max())
-            report[name]["max_abs_err"] = max(report[name]["max_abs_err"], abs_err)
-            log(f"kernel {name} n={n} case {i}: rel_l2={err:.3e} max_abs={abs_err:.3e}")
-            check(err <= TOL, f"{name} disagrees with its plain version at n={n} "
-                              f"case {i}: rel L2 {err:.3e} > {TOL}")
-            del s, ref
+            hold(name, args, n, 100 * n + i, f"case {i}")
+    # a state smaller than one lane block: the lane kernel's small-state
+    # path; and 8 rows: one partly filled tile of the tensor-core kernel
+    hold("lane", (unitary(N_SMALL, rng),), N_SMALL, 55, "small state")
+    hold("lane", (unitary(7, rng),), N_PART, 56, "part of a tile")
+    hold("lane", (unitary(7, rng),), 7, 57, "one row")
+    # the diag kernel with 0, 1 and 2 thread bits (several factors on a state
+    # of 1 to 3 qubits), and on a state of one amplitude
+    for n in (1, 2, 3):
+        factors = tuple((np.exp(1j * rng.uniform(0, 2 * math.pi, 1 << len(t))), t)
+                        for t in [(0,), (n - 1,), (0, n - 1)[:n], tuple(range(n))])
+        hold("diag", (factors,), n, 60 + n, f"{len(factors)} factors")
+    hold("diag", (((np.exp(0.7j) * np.ones(1), ()), (np.exp(-0.2j) * np.ones(1), ())),), 0, 60,
+         "scalar factors")
 
     if DEV != "cuda":
         return
@@ -326,10 +410,15 @@ def phase_kernels(report):
     n = N_TIME
     # (label, kernel, operands); the stage kernel at k = 2 and k = 4 (QFT
     # stages on qubits 0..k-1, full ladders), reported at the default group
+    cu1 = np.array([1, 1, 1, np.exp(0.3j)])
     timed = [
         ("gate", "gate", (unitary(4, rng), (2, 9, 15, 20))),
         ("diag", "diag", (tuple((np.exp(1j * rng.uniform(0, 2 * math.pi, 16)),
                                  (q, q + 5, q + 11, 27 - q)) for q in range(8)),)),
+        ("diag 1 factor of 2 qubits", "diag", (((cu1, (3, 17)),),)),
+        (f"diag ladder of {n - 1}", "diag", (tuple(
+            (np.array([1, 1, 1, np.exp(1j * math.pi / (1 << j))]), (0, j))
+            for j in range(1, n)),)),
         ("lane", "lane", (unitary(7, rng),)),
         ("layer1q", "layer1q", (tuple((unitary(1, rng), q) for q in (0, 4, 8, 12, 16, 20)),)),
     ]
@@ -347,20 +436,25 @@ def phase_kernels(report):
         k2 = time_ms(kern, s)
         p2 = time_ms(plain, s)
         kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
-        bound_ms, bound_by = P.bound(*kernel_cost(name, args, n))
+        prepared = None
+        if name in TIGHT:  # operands uploaded once, as a compiled circuit holds them
+            held = (K.lane_prepare if name == "lane" else K.diag_prepare)(*args, n, DEV)
+            prepared = time_ms(lambda st: K.KERNEL_FNS[name][0](st, held, n), s)
+        bound_ms, bound_by = P.bound(*kernel_cost(name, args, n), tf32x3=name == "lane")
         lms = None
         if name == "lane":  # the same product as one torch.matmul
             ut = torch.from_numpy(np.ascontiguousarray(args[0].T, dtype=np.complex64)).to(DEV)
             buf = torch.empty_like(s).view(-1, 128)
             lms = time_ms(lambda st: torch.matmul(st.view(-1, 128), ut, out=buf), s)
             del buf
-        if name != "stage" or label == f"stage k={STAGE_GROUP}":
+        if label in (name, f"stage k={STAGE_GROUP}"):
             report[name].update(ms=kms, plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by,
                                 library_ms=lms)
         log(f"time n={n} {label}: kernel {kms:.3f} ms ({gb / kms * 1e3:.1f} GB/s), "
             f"plain {pms:.3f} ms ({gb / pms * 1e3:.1f} GB/s), bound {bound_ms:.3f} ms "
             f"({bound_by}; {bound_ms / kms:.1%} of it)"
-            + (f", torch.matmul {lms:.3f} ms" if lms is not None else ""))
+            + (f", torch.matmul {lms:.3f} ms" if lms is not None else "")
+            + (f", kernel on prepared operands {prepared:.3f} ms" if prepared else ""))
     del s
     torch.cuda.empty_cache()
 
@@ -586,6 +680,16 @@ def run_main_path():
     log(f"adder28: {a_val} + {b_val} = {ans}")
     check(ans == a_val + b_val, f"adder28 ans {ans} != {a_val + b_val}")
     check(on_cuda and all(on_cuda), f"a state tensor was not on {DEV}")
+
+
+def time_file_path_warm():
+    """The file path's four wide programs again, three warm runs each."""
+    from qubism_torch.experiments.profile_circuits import file_path_warm
+
+    for line in file_path_warm(N_BIG, EXAMPLES):
+        check(line["rc"] == 0, f"{line['program']} (warm): eval_file rc={line['rc']}")
+        log(f"file path warm {line['program']}: best {min(line['seconds']):.3f} s of "
+            f"{', '.join(f'{t:.3f}' for t in line['seconds'])}")
 
 
 def check_uniform(label, state, n):
@@ -1066,11 +1170,15 @@ def main() -> int:
             + (f" (in timing calls {timed})" if timed else "")
             + (f" (by the single-device reference {ref})" if ref else "")
             + f", peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        log(f"phase {label}: diag launches by (factors, widest k): "
+            f"{ {f'{f}x{k}': c for (f, k), c in sorted(kernels.diag_shapes.items())} }")
         for name in KERNELS:
             report[name]["launches"] += launches[name] - ref.get(name, 0)
         for name in PATH_KERNELS[label]:
             own = launches[name] - timed.get(name, 0) - ref.get(name, 0)
             check(own > 0, f"the {label} never launched the {name} kernel")
+
+    time_file_path_warm()  # after the paths' counts were read: not their work
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()

@@ -61,7 +61,8 @@ class Probe:
     ``kernel`` (None: the library yardstick itself) over ``state``,
     ``plain`` the same pass by the plain version, ``library`` by one
     PyTorch call (or None); ``nbytes`` and ``flops`` are what one pass must
-    move and compute."""
+    move and compute (``tf32x3``: bounded by the TF32 rate, see
+    ``probes.bound``)."""
 
     kernel: str | None
     state: torch.Tensor
@@ -70,6 +71,8 @@ class Probe:
     library: Callable[[], object] | None
     nbytes: int
     flops: int
+    #: the operations run as three TF32 products on the tensor cores
+    tf32x3: bool = False
 
 
 def _state(n: int, device) -> torch.Tensor:
@@ -155,7 +158,7 @@ def _lane(n, device):
     return Probe("lane", s, lambda: kernels.lane(s, plan, n),
                  lambda: kernels.lane_plain(s, plan, n),
                  lambda: torch.matmul(s.view(-1, 128), ut, out=buf),
-                 16 * amps + 128 * 128 * 8, amps * 128 * 8)
+                 16 * amps + 128 * 128 * 8, amps * 128 * 8, tf32x3=True)
 
 
 #: port variant -> a function (n, device) -> Probe. "<kind>_<T>x<V>" is a
@@ -281,7 +284,7 @@ def measure(name: str, n: int, device="cuda", card_info=(None, None)) -> dict:
     launched = _counts()[kernel] - before[kernel] if kernel else 0
     plain_ms = time_pass(probe.plain) if probe.plain else None
     library_ms = time_pass(probe.library) if probe.library else None
-    bound_ms, bound_by = probes.bound(probe.nbytes, probe.flops)
+    bound_ms, bound_by = probes.bound(probe.nbytes, probe.flops, probe.tf32x3)
     gbps = probe.nbytes / ms / 1e6
     del probe
     if device != "cpu":

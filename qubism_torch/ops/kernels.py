@@ -28,7 +28,7 @@ the diag and lane wrappers also take raw host operands and upload them.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -37,20 +37,28 @@ from .apply import _COL, as_operand, canonical_device, target_view
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {"gate": 0, "diag": 0, "lane": 0, "layer1q": 0, "stage": 0, "butterfly": 0}
+#: the diag launches among them by (factors in the pass, widest factor's
+#: qubits; 0 = only (mask, value, phase) factors)
+diag_shapes: dict = {}
 
 #: widest diagonal factor held as a table (2^7 entries: the widest factor
 #: fusion emits, a pure-lane union). Wider factors are split exactly into
 #: (mask, phase) pairs by :func:`_split_factor_phases`.
 _TABLE_BITS_MAX = 7
 #: per-pass budgets of the diag kernel's shared memory (entries, factors):
-#: 4096 * 8 B of tables + 64 descriptors stay under the 48 KB a block gets
-#: without opting in
+#: 4096 * 8 B of tables + 64 descriptors of 64 B stay under the 48 KB a
+#: block gets without opting in
 _DIAG_PASS_ENTRIES = 4096
 _DIAG_PASS_FACTORS = 64
-#: int32 words per diag factor descriptor (kDescWords in csrc/diag.cu): k,
-#: table offset, mask lo, mask hi, then up to 8 bit positions of its targets
-#: (MSB of the table index first)
-_DESC_WORDS = 12
+#: int32 words per diag factor descriptor (kDescWords in csrc/diag.cu), the
+#: word of the first run and of the first position byte
+_DESC_WORDS = 16
+_DESC_RUN, _DESC_DELTA = 2, 12
+#: a diag thread owns 2^M vectors of two amplitudes, M <= 3 thread bits at
+#: positions >= 6 where the state has them (a warp then still moves 512
+#: contiguous bytes per vector)
+_THREAD_BITS_MAX = 3
+_THREAD_BIT_FLOOR = 6
 
 _LAYER1Q_MAX = 6
 
@@ -58,6 +66,7 @@ _LAYER1Q_MAX = 6
 def reset_launches():
     for k in launches:
         launches[k] = 0
+    diag_shapes.clear()
 
 
 def _check_state(state: torch.Tensor, n: int):
@@ -71,6 +80,11 @@ def _check_plan_device(name: str, plan_device, state: torch.Tensor):
     if plan_device != state.device:
         raise ValueError(f"{name}: operands prepared for {plan_device}, "
                          f"state on {state.device}")
+
+
+def _check_aligned(name: str, state: torch.Tensor):
+    if state.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel takes a state aligned to 16 bytes")
 
 
 def _launch(state: torch.Tensor, name: str, call, counts=None):
@@ -177,26 +191,52 @@ def layer1q(state: torch.Tensor, gates, n: int) -> torch.Tensor:
 @dataclass(frozen=True)
 class LanePlan:
     """A lane gate's operands: ``u`` (L, L) on the host and, for a CUDA
-    device, ``ut`` = U^T as a complex64 device tensor."""
+    device, ``dev`` = what the kernel reads, as a device tensor:
+    :func:`lane_parts` of U (float32) for L = 128, U^T (complex64) for a
+    smaller L."""
 
     u: np.ndarray
     device: torch.device
-    ut: torch.Tensor | None
+    dev: torch.Tensor | None
+
+
+def round_tf32(x: np.ndarray) -> np.ndarray:
+    """float32 values rounded to TF32's 10 mantissa bits (to nearest, on the
+    bit pattern), as float32."""
+    b = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def lane_parts(u: np.ndarray) -> np.ndarray:
+    """A 128 x 128 matrix as the tensor-core kernel's shared-memory operand,
+    float32 (2, 2, 32, 8, 2, 8, 4): element [h, p, 2 s + c, ng, w, r, cc] is
+    TF32 part p (0: big, the value rounded to 10 mantissa bits; 1: the
+    residual, exact in float32) of the real (w = 0) or imaginary (w = 1) part
+    of U[64 h + 8 ng + r, 8 s + 2 cc + c]. Block h of a pair reads [h]: for
+    each k8 step 2 s + c (complex input columns 8 s + 2 cc + c) and group ng
+    of 8 outputs, the 8 x 4 core matrices of Ur and Ui, 128 contiguous bytes
+    each (csrc/lane.cu)."""
+    u = np.asarray(u, dtype=np.complex64)
+    a = np.stack([u.real, u.imag]).reshape(2, 2, 8, 8, 16, 4, 2)  # w, h, ng, r, s, cc, c
+    a = np.ascontiguousarray(a.transpose(1, 4, 6, 2, 0, 3, 5)).reshape(2, 32, 8, 2, 8, 4)
+    big = round_tf32(a)
+    return np.ascontiguousarray(np.stack([big, a - big], axis=1))
 
 
 def lane_prepare(u, n: int, device) -> LanePlan:
-    """Check a lane matrix (L = 2^min(n,7)) and upload U^T for a CUDA
-    device."""
+    """Check a lane matrix (L = 2^min(n,7)) and upload the kernel's operand
+    for a CUDA device."""
     lanes = 1 << min(n, _COL)
     u = np.asarray(u)
     if u.shape != (lanes, lanes):
         raise ValueError(f"lane: matrix shape {u.shape} != {(lanes, lanes)}")
     device = canonical_device(device)
-    ut = None
+    dev = None
     if device.type != "cpu":
-        # the kernel reads U^T so that a warp's lanes read consecutive columns
-        ut = torch.from_numpy(np.ascontiguousarray(u.T, dtype=np.complex64)).to(device)
-    return LanePlan(u, device, ut)
+        host = (lane_parts(u) if lanes == 128
+                else np.ascontiguousarray(u.T, dtype=np.complex64))
+        dev = torch.from_numpy(host).to(device)
+    return LanePlan(u, device, dev)
 
 
 def lane_plain(state: torch.Tensor, u, n: int) -> torch.Tensor:
@@ -213,14 +253,19 @@ def lane_plain(state: torch.Tensor, u, n: int) -> torch.Tensor:
 def lane(state: torch.Tensor, u, n: int) -> torch.Tensor:
     """A gate expanded over the whole lane block (u: (L, L) complex with
     L = 2^min(n,7), see apply.expand_for_view, or its :class:`LanePlan`),
-    in place."""
+    in place. On a CUDA state with L = 128 the product runs on the tensor
+    cores (wgmma) as three TF32 products of split operands, which keeps fp32
+    accuracy; pairs of blocks share each tile of 128 rows, each holding the
+    parts of half of U's rows in shared memory (:func:`lane_parts`). A
+    smaller state takes a small fp32 kernel."""
     plan = u if isinstance(u, LanePlan) else lane_prepare(u, n, state.device)
     _check_state(state, n)
     if state.device.type == "cpu":
         return lane_plain(state, plan.u, n)
     _check_plan_device("lane", plan.device, state)
+    _check_aligned("lane", state)
     return _launch(state, "lane", lambda lib, d, s: lib.qk_lane(
-        _ptr(state), n, _ptr(plan.ut), d, s))
+        _ptr(state), n, _ptr(plan.dev), d, s))
 
 
 # ---------------------------------------------------------------------------
@@ -327,14 +372,100 @@ def _mask_factors(f, n: int):
     return out
 
 
-def _words(v: int) -> np.ndarray:
-    """A 64-bit mask as two int32 words (lo, hi)."""
-    return np.array([v & 0xFFFFFFFF, v >> 32], dtype=np.uint32).view(np.int32)
+@dataclass(frozen=True)
+class DiagPass:
+    """What one launch of the diag kernel reads.
+
+    ``tables`` (complex64, every factor's entries one after another) and
+    ``desc`` (int32 (F, 16), one descriptor per factor, see csrc/diag.cu) are
+    numpy arrays from :func:`_diag_passes` and device tensors in a
+    :class:`DiagPlan`. ``own`` are the thread bits of the pass (ascending bit
+    positions): a thread's amplitudes differ in bit 0 and in these. The first
+    ``ninv`` descriptors are the factors that touch none of those bits.
+    ``single`` = (positions, table) marks a pass of one factor on one or two
+    qubits, which takes the kernel without descriptors (``tables`` and
+    ``desc`` are then None). ``shape`` = (factors, widest factor's qubits)
+    is what :data:`diag_shapes` counts."""
+
+    tables: object
+    desc: object
+    ninv: int
+    own: tuple
+    shape: tuple
+    single: tuple | None = None
 
 
-def _diag_passes(factors, n: int):
-    """Host side of K2: [(tables complex64 (T,), desc int32 (F, W))] per
-    kernel pass, each within the shared-memory budget."""
+def _thread_bits(touched, n: int) -> tuple:
+    """The pass's thread bits: min(3, n - 1) positions, from 6 up where the
+    state has that many, that the fewest factors touch (``touched[p]`` =
+    number of factors with a target at bit p); ties go to the lowest."""
+    m = max(0, min(_THREAD_BITS_MAX, n - 1))
+    lo = max(1, min(_THREAD_BIT_FLOOR, n - m))
+    return tuple(sorted(sorted(range(lo, n), key=lambda p: (touched[p], p))[:m]))
+
+
+def _runs(pairs):
+    """(bit position, index bit) pairs as runs (shift, mask, left) of
+    neighbouring bits: the index gets ((i >> shift) & mask) << left."""
+    runs = []  # [first position, first index bit, length]
+    for p, e in sorted(pairs):
+        if runs and runs[-1][0] + runs[-1][2] == p and runs[-1][1] + runs[-1][2] == e:
+            runs[-1][2] += 1
+        else:
+            runs.append([p, e, 1])
+    return [(p, (1 << length) - 1, e) for p, e, length in runs]
+
+
+def _diag_descriptors(group, n: int):
+    """One pass's (tables, desc, ninv, own) from its items (k, table,
+    positions) / (0, [phase], (mask, value))."""
+    touched = [0] * max(n, 1)
+    for k, _, where in group:
+        for p in (where if k else [p for p in range(n) if (where[0] >> p) & 1]):
+            touched[p] += 1
+    own = _thread_bits(touched, n)
+    bits = (0,) + own  # bit b of a position's vector number is own[b]
+    offs = [(c & 1) | sum(((c >> (b + 1)) & 1) << p for b, p in enumerate(own))
+            for c in range(2 << len(own))]
+    own_mask = sum(1 << p for p in bits)
+
+    rows = []  # (touches the thread's own bits, descriptor words, table)
+    for k, table, where in group:
+        d = [0] * _DESC_WORDS
+        if k:
+            pairs = [(int(p), k - 1 - j) for j, p in enumerate(where)]
+            mine = [(p, e) for p, e in pairs if p in bits]
+            runs = _runs([pe for pe in pairs if pe[0] not in bits])
+            d[0] = len(runs)
+            for r, (shift, mask, left) in enumerate(runs):
+                d[_DESC_RUN + r] = shift | (mask << 8) | (left << 16)
+            for c, off in enumerate(offs if mine else ()):
+                delta = sum(1 << e for p, e in mine if (off >> p) & 1)
+                d[_DESC_DELTA + c // 4] |= delta << (8 * (c % 4))
+            variant = bool(mine)
+        else:
+            mask, value = where
+            d[0] = 0xFFFFFFFF  # -1
+            d[2], d[3] = (mask & ~own_mask) & 0xFFFFFFFF, (mask & ~own_mask) >> 32
+            d[4], d[5] = (value & ~own_mask) & 0xFFFFFFFF, (value & ~own_mask) >> 32
+            d[6] = sum(1 << c for c, off in enumerate(offs)
+                       if (off & mask & own_mask) == (value & own_mask))
+            variant = bool(mask & own_mask)
+        rows.append((variant, d, table))
+    rows.sort(key=lambda r: r[0])  # stable: the invariant factors first
+    start = 0
+    for _, d, table in rows:
+        d[1] = start
+        start += len(table)
+    desc = np.array([d for _, d, _ in rows], dtype=np.uint32).view(np.int32)
+    tables = np.concatenate([t for _, _, t in rows]).astype(np.complex64)
+    ninv = sum(1 for v, _, _ in rows if not v)
+    return tables, desc, ninv, own
+
+
+def _diag_passes(factors, n: int) -> list:
+    """Host side of K2: one :class:`DiagPass` (numpy operands) per kernel
+    launch, each within the shared-memory budget."""
     items = []  # (k, table (2^k,), positions) or (0, [phase], (mask, value))
     for d, targets in factors:
         d = np.asarray(d, dtype=np.complex128).ravel()
@@ -357,26 +488,21 @@ def _diag_passes(factors, n: int):
         passes.append(cur)
     out = []
     for group in passes:
-        tables = np.concatenate([t for _, t, _ in group]).astype(np.complex64)
-        desc = np.zeros((len(group), _DESC_WORDS), dtype=np.int32)
-        off = 0
-        for f, (k, table, where) in enumerate(group):
-            desc[f, 0] = k
-            desc[f, 1] = off
-            if k:
-                desc[f, 4:4 + k] = where
-            else:
-                desc[f, 2:4] = _words(where[0])
-                desc[f, 4:6] = _words(where[1])
-            off += len(table)
-        out.append((tables, desc))
+        k, table, where = group[0]
+        shape = (len(group), max(k for k, _, _ in group))
+        if len(group) == 1 and 1 <= k <= 2 and n >= 1:
+            out.append(DiagPass(None, None, 0, (), shape, (
+                np.ascontiguousarray(where, dtype=np.int64), table.astype(np.complex64))))
+        else:
+            out.append(DiagPass(*_diag_descriptors(group, n), shape))
     return out
 
 
 @dataclass(frozen=True)
 class DiagPlan:
     """A diagonal layer's operands: the host ``factors`` and, for a CUDA
-    device, the (tables, descriptors) device tensors of each kernel pass."""
+    device, one :class:`DiagPass` per kernel launch with its tables and
+    descriptors on the device."""
 
     factors: tuple
     device: torch.device
@@ -389,23 +515,36 @@ def diag_prepare(factors, n: int, device) -> DiagPlan:
     device = canonical_device(device)
     passes = ()
     if device.type != "cpu":
-        passes = tuple((torch.from_numpy(t).to(device), torch.from_numpy(d).to(device))
-                       for t, d in _diag_passes(factors, n))
+        passes = tuple(
+            p if p.single else replace(p, tables=torch.from_numpy(p.tables).to(device),
+                                       desc=torch.from_numpy(p.desc).to(device))
+            for p in _diag_passes(factors, n))
     return DiagPlan(factors, device, passes)
 
 
 def diag(state: torch.Tensor, factors, n: int) -> torch.Tensor:
     """The product of commuting diagonal factors ((d (2^k,), targets), ...,
     or their :class:`DiagPlan`) in one pass per shared-memory budget, in
-    place."""
+    place. A thread of the kernel moves 16 bytes per access and evaluates
+    once what its 16 amplitudes share (see :class:`DiagPass`); a pass of one
+    factor on one or two qubits needs no operand on the device."""
     _check_state(state, n)
     if state.device.type == "cpu":
         return diag_plain(state, factors, n)
     plan = factors if isinstance(factors, DiagPlan) else diag_prepare(factors, n, state.device)
     _check_plan_device("diag", plan.device, state)
-    for tab, dsc in plan.passes:
-        _launch(state, "diag", lambda lib, d, s: lib.qk_diag(
-            _ptr(state), n, _ptr(tab), tab.numel(), _ptr(dsc), dsc.shape[0], d, s))
+    _check_aligned("diag", state)
+    for p in plan.passes:
+        if p.single:
+            pos, table = p.single
+            _launch(state, "diag", lambda lib, d, s: lib.qk_diag1(
+                _ptr(state), n, len(pos), _host(pos), _host(table), d, s))
+        else:
+            own = np.array(p.own, dtype=np.int32)
+            _launch(state, "diag", lambda lib, d, s: lib.qk_diag(
+                _ptr(state), n, _ptr(p.tables), p.tables.numel(), _ptr(p.desc),
+                p.desc.shape[0], p.ninv, len(own), _host(own), d, s))
+        diag_shapes[p.shape] = diag_shapes.get(p.shape, 0) + 1
     return state
 
 

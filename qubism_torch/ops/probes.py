@@ -21,7 +21,8 @@ kernel for a CUDA tensor (or raises) and runs the plain version
 one-element float32 tensor holding the sum).
 
 :func:`bound` gives the least time the card can take for a pass from its
-bytes and operations, against the published peaks of one H100 SXM.
+bytes and operations, against the published peaks of one H100 SXM (the
+float32 rate, or for the lane kernel's three TF32 products the TF32 rate).
 """
 
 from __future__ import annotations
@@ -48,10 +49,12 @@ _MAX_BLOCKS = 1 << 16
 _PAIR_MAX_THREADS = 512
 _STREAM_MAX_THREADS = 1024
 
-#: published peaks of one NVIDIA H100 SXM (data sheet, 700 W): HBM3 bytes/s
-#: and float32 operations/s outside the tensor cores
+#: published peaks of one NVIDIA H100 SXM (data sheet, 700 W): HBM3 bytes/s,
+#: float32 operations/s outside the tensor cores, and dense TF32
+#: operations/s on them
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
 
 
 def reset_launches():
@@ -59,11 +62,13 @@ def reset_launches():
         launches[k] = 0
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, tf32x3: bool = False) -> tuple[float, str]:
     """(least ms, "bytes" or "operations"): the larger of the bytes over the
-    memory rate and the float32 operations over the peak rate."""
+    memory rate and the float32 operations over the peak rate. ``tf32x3``:
+    the operations run on the tensor cores as three TF32 products each (the
+    lane kernel), so 3 x the operations over the TF32 peak."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = (3 * flops / PEAK_TF32_FLOP_PER_S if tf32x3 else flops / PEAK_FP32_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
