@@ -14,7 +14,7 @@ and times both at n = 28 (diag at three shapes: one 2-qubit factor, 8
 factors of 4 qubits, a 27-factor controlled-phase ladder; lane beside one
 ``torch.matmul``; a lane or diag call prepares and uploads its operands, so
 their lines also give the kernel on operands prepared once). Then it drives
-five paths, each with the launch counters set to 0 just before it and read
+eight paths, each with the launch counters set to 0 just before it and read
 just after (a ``phase <path>: diag launches by (factors, widest k)`` line
 gives the shapes of its diag passes):
 
@@ -41,6 +41,20 @@ gives the shapes of its diag passes):
   seconds of both), and a 4-shard mesh placed on the one card (2 device
   bits, 2 bank bits) against the single-device engine, with measurements on
   a device and a bank bit and 8192 shots.
+
+* the observables: Pauli expectations at full width (GHZ-30, the compiled
+  QFT-30 state, a brickwork-30 state: single strings and a sum of about 36
+  terms, each against P applied to a copy by the gate kernels and an inner
+  product in float64), through ``eval_file(..., observables=[...])`` on
+  the file path, ``--compile`` and ``mesh=1``; reduced density matrices and
+  entropies of GHZ-30; and a ``Repl`` session with a failing line, ``:obs``,
+  ``:save`` of a 26-qubit register and ``:load`` in a second ``Repl``;
+* the density path: noisy brickwork-14 and GHZ-14 (a 2^28 state) through
+  ``eval_file(backend="density", noise=...)`` with observables, shots and a
+  dump, against the same programs with every pass applied by the plain
+  versions, and ``apply_channel`` against ``apply_channel_plain``;
+* the mesh density path: n = 15 as 4 shards of 2^28 on the one card against
+  ``DensityMatrix``, and n = 12 entry by entry.
 
 The butterfly kernel (K6) is held against its plain version at 2^20 and
 2^30 amplitudes in 2, 4 and 16 banks and timed at 2^28 beside one
@@ -84,6 +98,13 @@ N_CHECK, N_WIDE, N_TIME, N_BIG, N_QFT, ADDER_WIDTH, N_DSL = 20, 30, 28, 30, 28, 
 #: than a tile of the lane kernel
 N_SMALL, N_PART = 5, 10
 SHOTS = 8192
+#: the density engine's widths (one buffer; 4 shards; the entry-by-entry
+#: check), the REPL's saved register, and the noise of the density programs
+N_DENS, N_DENS_MESH, N_DENS_SMALL, N_REPL = 14, 15, 12, 26
+NOISE = "dep:0.01,ad:0.02,pd:0.01,dep2:0.02"
+#: device memory the expectation functions may take beside the state
+OBS_SLACK_GIB = 1.5
+MESH_DENS_PEAK_GIB = 12.0
 
 #: kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -107,6 +128,9 @@ PATH_KERNELS = {
     "DSL": ("gate", "diag", "lane", "stage"),
     "bandwidth probe": ("probe_stream", "probe_pair", "lane"),
     "mesh path": ("butterfly", "gate", "diag", "lane", "stage"),
+    "observables": ("gate", "diag", "lane", "stage"),
+    "density path": ("gate", "diag", "lane"),
+    "mesh density path": ("gate", "diag"),
 }
 #: the butterfly kernel's bank counts, and the one whose time fills its row
 #: (the mesh path's: one card holds 30 qubits as 2 banks of 2^29)
@@ -290,6 +314,125 @@ def tally(counts, fn):
     for k, v in kernels.launches.items():
         counts[k] = counts.get(k, 0) + v - before[k]
     return out
+
+
+#: the largest device memory a :func:`peak_gib` call saw since the path began
+PEAK = [0]
+
+
+def peak_gib(fn):
+    """(fn(), the peak device memory in GiB while it ran); the path's own
+    peak is kept in PEAK across the reset."""
+    import torch
+
+    if DEV != "cuda":
+        return fn(), 0.0
+    PEAK[0] = max(PEAK[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    sync()
+    peak = torch.cuda.max_memory_allocated()
+    PEAK[0] = max(PEAK[0], peak)
+    return out, peak / 2**30
+
+
+def warm_ms(fn):
+    """Host milliseconds of a second ``fn()`` call (the first, which
+    :func:`peak_gib` made, paid for library start-up), synchronised."""
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def held_gib():
+    import torch
+
+    return torch.cuda.memory_allocated() / 2**30 if DEV == "cuda" else 0.0
+
+
+def inner64(a, b):
+    """<a|b> accumulated in float64, 2^24 amplitudes at a time."""
+    import torch
+
+    acc = torch.zeros((), dtype=torch.complex128, device=a.device)
+    step = 1 << 24
+    for i in range(0, a.numel(), step):
+        acc += torch.sum(a[i:i + step].conj().to(torch.complex128) * b[i:i + step])
+    return complex(acc.item())
+
+
+def pauli_by_gates(state, pauli, n):
+    """<psi|P|psi> a second way: P applied to a copy of the state letter by
+    letter through the appliers (the gate, lane and diag kernels), then the
+    inner product in float64. Its launches are counted in REFERENCE."""
+    import numpy as np
+
+    from qubism_torch.ops import apply as A
+
+    mats = {"X": np.array([[0, 1], [1, 0]]), "Y": np.array([[0, -1j], [1j, 0]])}
+
+    def run():
+        psi = state.clone()
+        for q, c in enumerate(pauli):
+            if c == "Z":
+                A.apply_diag(psi, np.array([1, -1]), (q,), n)
+            elif c in mats:
+                A.apply_gate(psi, mats[c], (q,), n)
+        return inner64(state, psi).real
+
+    return tally(REFERENCE, run)
+
+
+class plain_kernels:
+    """While active, the gate, lane and diag wrappers run their plain
+    versions (for a whole run held against the kernels' run)."""
+
+    NAMES = ("gate", "lane", "diag")
+
+    def __enter__(self):
+        from qubism_torch.ops import kernels
+
+        self.saved = {k: getattr(kernels, k) for k in self.NAMES}
+        for k in self.NAMES:
+            setattr(kernels, k, kernels.KERNEL_FNS[k][1])
+
+    def __exit__(self, *exc):
+        from qubism_torch.ops import kernels
+
+        for k, f in self.saved.items():
+            setattr(kernels, k, f)
+
+
+class counted_plain:
+    """While active, counts the calls of the plain versions of the gate,
+    lane and diag kernels in ``calls`` (a kernel's run must make none on a
+    CUDA tensor)."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __enter__(self):
+        from qubism_torch.ops import kernels
+
+        self.saved = {}
+        for k in plain_kernels.NAMES:
+            name = f"{k}_plain"
+            self.saved[name] = getattr(kernels, name)
+
+            def counting(*a, _f=self.saved[name], **kw):
+                self.calls += 1
+                return _f(*a, **kw)
+
+            setattr(kernels, name, counting)
+        return self
+
+    def __exit__(self, *exc):
+        from qubism_torch.ops import kernels
+
+        for name, f in self.saved.items():
+            setattr(kernels, name, f)
 
 
 def device_ms(fn, reps=5):
@@ -1033,6 +1176,408 @@ def run_mesh_path():
     check(all(t.device.type == DEV for row in sim.banks for t in row), "a bank left the card")
 
 
+def obs_lines(text):
+    """{pauli: value} of the ``<P> = value`` lines of a CLI transcript."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("<") and "> = " in line:
+            p, v = line[1:].split("> = ")
+            out[p] = float(v)
+    return out
+
+
+def mixed_pauli(n, letters):
+    p = ["I"] * n
+    for q, c in letters.items():
+        p[q] = c
+    return "".join(p)
+
+
+def run_observables_path():
+    """Pauli expectations at full width, reduced density matrices, and the
+    REPL with a checkpoint."""
+    import torch
+
+    from qubism_torch import cli
+    from qubism_torch.core.statevec import StateVec
+    from qubism_torch.models.circuits import (brickwork_prims, ghz_prims, ghz_qasm,
+                                              qaoa_maxcut_energy, qft_prims, ring_edges)
+    from qubism_torch.ops import measure as M
+    from qubism_torch.ops import rdm
+    from qubism_torch.ops.fusion import CompiledCircuit
+
+    n = N_BIG
+    lane0 = max(n - 7, 0)
+    zz = mixed_pauli(n, {1: "Z", n - 2: "Z"})
+    circ = CompiledCircuit(n, ghz_prims(n))
+    ghz = circ(circ.init_state())
+    del circ
+    sync()
+    base = held_gib()
+    for pauli, label in ((zz, f"Z1 Z{n - 2}"), ("X" * n, f"X^{n}")):
+        val, peak = peak_gib(lambda p=pauli: M.expectation_pauli(ghz, n, p))
+        ms = warm_ms(lambda p=pauli: M.expectation_pauli(ghz, n, p))
+        log(f"observables ghz{n} <{label}> = {val:.7f}: {ms:.1f} ms, "
+            f"peak {peak:.2f} GiB (state {base:.2f})")
+        check(abs(val - 1) <= 1e-5, f"ghz{n} <{label}> = {val} != 1")
+        check(DEV != "cuda" or peak <= base + OBS_SLACK_GIB,
+              f"<{label}> took {peak:.2f} GiB beside a state of {base:.2f}")
+
+    # reduced density matrices of the GHZ state: one qubit, six scattered
+    for subset in ((n // 2,), (0, 3, n // 2, lane0 - 1, lane0 + 2, n - 1)):
+        rho, peak = peak_gib(lambda sub=subset: rdm.reduced_density_matrix(ghz, n, sub))
+        ms = warm_ms(lambda sub=subset: rdm.reduced_density_matrix(ghz, n, sub))
+        ent = rdm.entanglement_entropy(ghz, n, subset)
+        tr = float(rho.trace().real)
+        log(f"rdm ghz{n} subset {subset}: {ms:.1f} ms, trace {tr:.7f}, entropy {ent:.7f} "
+            f"(ln 2 = {math.log(2):.7f}), peak {peak:.2f} GiB")
+        check(abs(tr - 1) <= 1e-5 and abs(ent - math.log(2)) <= 1e-4,
+              f"rdm ghz{n} {subset}: trace {tr}, entropy {ent}")
+    del ghz
+
+    single = mixed_pauli(n, {0: "X", 1: "Z", n // 2 - 1: "Y", n // 2: "X", lane0 - 1: "Z",
+                             lane0 + 1: "Y", n - 3: "Z", n - 1: "X"})
+    edges = ring_edges(n)
+    extra = [(0.7, single), (-0.4, mixed_pauli(n, {0: "Y", 1: "Y", n // 2 - 1: "X", n // 2: "Z",
+                                                   lane0 + 1: "X", n - 1: "Y", 5: "Z"})),
+             (0.3, mixed_pauli(n, {2: "X", n - 2: "X"})), (1.1, mixed_pauli(n, {2: "Y", n - 2: "Y"})),
+             (-0.6, mixed_pauli(n, {2: "X", n - 2: "X", 7: "Z", n - 4: "Z"})),
+             (0.2, mixed_pauli(n, {n - 1: "Y"}))]
+    cut_terms = [(-0.5, mixed_pauli(n, {i: "Z", j: "Z"})) for i, j in edges]
+    terms = cut_terms + extra
+    states = {f"qft{n}": qft_prims(n), f"brickwork{n}": brickwork_prims(n, 4, seed=7)}
+    for label, prims in states.items():
+        circ = CompiledCircuit(n, prims)
+        state = circ(circ.init_state())
+        del circ
+        sync()
+        base = held_gib()
+        val, peak = peak_gib(lambda: M.expectation_pauli(state, n, single))
+        ms_one = warm_ms(lambda: M.expectation_pauli(state, n, single))
+        total, peak2 = peak_gib(lambda: M.expectation_pauli_sum(state, n, terms))
+        ms_sum = warm_ms(lambda: M.expectation_pauli_sum(state, n, terms))
+        cut = qaoa_maxcut_energy(StateVec(n, state), n, edges)
+        ms_cut = warm_ms(lambda: qaoa_maxcut_energy(StateVec(n, state), n, edges))
+        peak = max(peak, peak2)
+        want = pauli_by_gates(state, single, n)
+        want_terms = [pauli_by_gates(state, p, n) for _, p in terms]
+        want_total = sum(c * w for (c, _), w in zip(terms, want_terms))
+        want_cut = 0.5 * len(edges) + sum(c * w for (c, _), w in zip(cut_terms, want_terms))
+        groups = len(M.group_terms([p for _, p in terms]))
+        log(f"observables {label}: <P> = {val:.7f} (by gates {want:.7f}) {ms_one:.1f} ms; sum of "
+            f"{len(terms)} terms in {groups} flip groups = {total:.7f} (by gates {want_total:.7f}) "
+            f"{ms_sum:.1f} ms; MaxCut energy of {len(edges)} edges = {cut:.7f} (by gates "
+            f"{want_cut:.7f}) {ms_cut:.1f} ms; peak {peak:.2f} GiB (state {base:.2f})")
+        check(abs(val - want) <= 1e-5, f"{label}: <P> {val} != {want} by gates")
+        check(abs(total - want_total) <= 1e-5 * sum(abs(c) for c, _ in terms),
+              f"{label}: sum {total} != {want_total} by gates")
+        check(abs(cut - want_cut) <= 1e-5 * 0.5 * len(edges),
+              f"{label}: MaxCut {cut} != {want_cut}")
+        check(DEV != "cuda" or peak <= base + OBS_SLACK_GIB,
+              f"{label}: expectations took {peak:.2f} GiB beside a state of {base:.2f}")
+        del state
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+    # --observable through the CLI's three state-vector modes
+    for mode, kw in (("file path", {}), ("--compile", {"compile_mode": True}),
+                     ("--mesh 1", {"mesh": 1})):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        rc = cli.eval_file(os.path.join(EXAMPLES, "<chip_smoke obs ghz>.qasm"),
+                           source=ghz_qasm(n, measure=False), out=buf, seed=0,
+                           observables=[zz, "x" * n, mixed_pauli(n, {0: "Z"})], **kw)
+        sync()
+        got = obs_lines(buf.getvalue())
+        log(f"observables ghz{n} {mode}: {time.perf_counter() - t0:.2f} s, "
+            f"{ {k[:3] + '..' + k[-3:]: v for k, v in got.items()} }")
+        check(rc == 0 and buf.getvalue().rstrip().endswith("Done."),
+              f"--observable {mode}: rc={rc}\n{buf.getvalue()[-2000:]}")
+        check(len(got) == 3 and abs(got[zz] - 1) <= 1e-5 and abs(got["X" * n] - 1) <= 1e-5
+              and abs(got[mixed_pauli(n, {0: "Z"})]) <= 1e-5, f"--observable {mode}: {got}")
+    buf = io.StringIO()
+    rc = cli.eval_file(os.path.join(EXAMPLES, "<chip_smoke obs bad>.qasm"),
+                       source=ghz_qasm(3, measure=False), out=buf, observables=["ZZ"])
+    check(rc == 2 and "qubism: --observable:" in buf.getvalue(), f"bad --observable: rc={rc}")
+    run_repl()
+
+
+def run_repl():
+    """A Repl session on the card: teleportation line by line with a failing
+    line in the middle, ``:obs``, ``:save`` of an N_REPL-qubit register,
+    ``:load`` in a second Repl, one more gate, ``:obs`` again; the same
+    lines without the checkpoint must print the same."""
+    import tempfile
+
+    import torch
+
+    from qubism_torch import cli
+
+    n = N_REPL
+    head = ['include "qelib1.inc";', "qreg q[3];", "creg c0[1];", "creg c1[1];",
+            "u3(0.3,0.2,0.1) q[0];", "h q[1];", "cx q[1],q[2];", "cx q[0],q[1];", "h q[0];",
+            "cx q[0],q[7];",            # fails: the line must change nothing
+            "measure q[0] -> c0[0];", "measure q[1] -> c1[0];",
+            "if(c0==1) z q[2];", "if(c1==1) x q[2];", ":obs IIZ",
+            f"qreg big[{n}];", "h big[0];"]
+    head += [f"cx big[{i}],big[{i + 1}];" for i in range(n - 1)]
+    head += [f"ry(0.4) big[{n // 2}];"]
+    obs_big = "III" + mixed_pauli(n, {0: "X", n // 2: "Y", n - 1: "X"})
+    tail = [f"rx(0.3) big[{n - 1}];", "cx q[2],big[0];", f":obs {obs_big}",
+            ":obs III" + mixed_pauli(n, {0: "Z", 1: "Z"})]
+
+    def session(lines, out, seed=5):
+        r = cli.Repl(seed=seed, out=out, include_base=EXAMPLES)
+        for text in lines:
+            fails = text == "cx q[0],q[7];"
+            if fails:
+                before = {k: sv.state.clone() for k, sv in r.prog.stvecs.items()}
+            check(r.line(text), f"repl stopped at {text!r}")
+            if fails:
+                check(all(torch.equal(before[k], sv.state) for k, sv in r.prog.stvecs.items())
+                      and set(before) == set(r.prog.stvecs), "a failing line changed the state")
+        return r
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "session.npz")
+        a_out, b_out, c_out = io.StringIO(), io.StringIO(), io.StringIO()
+        first = session(head, a_out)
+        check("ERROR on line 1" in a_out.getvalue() and "Index 7 out of bounds" in a_out.getvalue(),
+              f"repl: the failing line printed {a_out.getvalue()[:400]!r}")
+        check(all(sv.state.device.type == DEV for sv in first.prog.stvecs.values()),
+              "a REPL state left the card")
+        t0 = time.perf_counter()
+        first.line(f":save {path}")
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        second = cli.Repl(seed=99, out=b_out, include_base=EXAMPLES)
+        t0 = time.perf_counter()
+        second.line(f":load {path}")
+        sync()
+        t_load = time.perf_counter() - t0
+        for text in tail:
+            second.line(text)
+        whole = session(head + tail, c_out)
+        sync()
+    resumed = obs_lines(a_out.getvalue() + b_out.getvalue())
+    straight = obs_lines(c_out.getvalue())
+    log(f"repl: {len(head) + len(tail)} lines, checkpoint of a {n}-qubit register "
+        f"{size / 2**20:.1f} MiB, save {t_save:.2f} s, load {t_load:.2f} s; :obs {resumed}")
+    check(len(resumed) == 3 and resumed == straight,
+          f"repl: resumed session printed {resumed}, uninterrupted {straight}")
+    check(all(torch.equal(sv.state, whole.prog.stvecs[k].state)
+              for k, sv in second.prog.stvecs.items()),
+          "repl: the resumed state differs from the uninterrupted one")
+    check(all(sv.state.device.type == DEV for sv in second.prog.stvecs.values()),
+          "a loaded state is not on the card")
+
+
+def noisy_programs(n):
+    """A GHZ chain with two diagonal gates after it (gates only), and two
+    brickwork layers with a reset and a mid-circuit measurement."""
+    from qubism_torch.models.circuits import brickwork_qasm, ghz_qasm
+
+    return {f"noisy ghz{n}": ghz_qasm(n, measure=False) + f"t q[0];\nrz(0.3) q[{n - 1}];\n",
+            f"noisy brickwork{n}": brickwork_qasm(n, 2, seed=9, measure=False)
+            + f"reset q[1];\nmeasure q[0] -> c[0];\nh q[{n - 1}];\n"}
+
+
+def run_density_path():
+    """The exact density engine at n = N_DENS through eval_file, against the
+    same programs with every pass applied by the plain versions."""
+    import numpy as np
+    import torch
+
+    from qubism_torch import cli
+    from qubism_torch.core import density as D
+    from qubism_torch.core.gates import Prim
+    from qubism_torch.ops import kernels
+    from qubism_torch.qasm.parser import parse_openqasm
+    from qubism_torch.run.noisy import DensityProgram
+
+    n = N_DENS
+    parity = mixed_pauli(n, {0: "Z", n - 1: "Z"})
+    observables = [parity, mixed_pauli(n, {0: "X", 1: "Y", n - 1: "Z"}), "X" * n]
+    for label, src in noisy_programs(n).items():
+        path = os.path.join(EXAMPLES, f"<chip_smoke {label}>.qasm")
+        got = {}
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with counted_plain() as plain:
+            rc = cli.eval_file(path, source=src, out=buf, seed=3, backend="density", noise=NOISE,
+                               observables=observables, shots=SHOTS, dump_state=True,
+                               inspect=lambda r: got.update(rho=r[0]))
+        sync()
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        check(rc == 0 and text.rstrip().endswith("Done."),
+              f"{label}: eval_file rc={rc}\n{text[-2000:]}")
+        rho = got["rho"]
+        check(rho.state.device.type == DEV and rho.state.numel() == 1 << (2 * n),
+              f"{label}: rho on {rho.state.device} with {rho.state.numel()} entries")
+        check(DEV != "cuda" or plain.calls == 0,
+              f"{label}: {plain.calls} passes ran as plain versions on a CUDA tensor")
+        tr, pur = rho.trace(), rho.purity()
+        vals = obs_lines(text)
+        counts = _counts(text)
+        passes = sum(kernels.launches[k] for k in ("gate", "diag", "lane"))
+        log(f"density {label}: {secs:.2f} s, trace {tr:.7f}, purity {pur:.6f}, "
+            f"<Z0 Z{n - 1}> = {vals[parity]:.6f}, {len(counts)} outcomes in {SHOTS} shots, "
+            f"{passes} kernel passes so far on this path")
+        check(abs(tr - 1) <= 1e-5 and pur < 1 - 1e-3, f"{label}: trace {tr}, purity {pur}")
+        check("Density matrix of q: " in text and f"noise={NOISE.replace(',', ', ')}" in text,
+              f"{label}: no dump in\n{text[:400]}")
+        check(sum(counts.values()) == SHOTS, f"{label}: counts sum {sum(counts.values())}")
+        # the same program, every pass by the plain versions
+        t0 = time.perf_counter()
+        with plain_kernels():
+            want, _ = tally(REFERENCE, lambda: DensityProgram(
+                parse_openqasm(path, src), noise=NOISE).run(seed=3))
+        sync()
+        err = rel_err(rho.state, want.state)
+        want_parity = want.expectation(parity)
+        log(f"density {label}: against the plain versions rel_l2 {err:.3e} "
+            f"({time.perf_counter() - t0:.2f} s), <Z0 Z{n - 1}> plain {want_parity:.6f}")
+        check(err <= TOL, f"{label}: kernels vs plain rel L2 {err:.3e}")
+        check(abs(vals[parity] - want_parity) <= 1e-5,
+              f"{label}: parity {vals[parity]} != {want_parity} of the plain run")
+        if "ghz" in label:  # the noise damps the parity and leaks counts off the pair
+            top = sorted(counts, key=counts.get)[-2:]
+            check(0 < vals[parity] < 1 - 1e-3 and set(top) == {"0" * n, "1" * n},
+                  f"{label}: parity {vals[parity]}, most frequent outcomes {top}")
+        del want
+
+    # passes per gate and per channel, and the superoperator against the
+    # term-by-term form, on the last program's rho
+    cx = np.eye(4)[[0, 1, 3, 2]]
+    per = {}
+    for what, fn in (("1q gate", lambda: rho.apply(Prim(unitary(1, np.random.default_rng(1)), (2,)))),
+                     ("2q gate", lambda: rho.apply(Prim(cx, (2, n - 1)))),
+                     ("1q channel", lambda: rho.apply_channel(D.amplitude_damping(0.02), n // 2)),
+                     ("2q channel", lambda: rho.apply_channel(D.depolarizing2(0.02), (1, n - 2)))):
+        before = dict(kernels.launches)
+        if DEV == "cuda":  # a warm-up call and two timed ones
+            ms = tally(TIMED, lambda fn=fn: device_ms(fn, reps=2))
+        else:
+            ms = [fn() for _ in range(3)] and 0.0
+        per[what] = (sum(kernels.launches[k] - before[k] for k in before) // 3, ms)
+    log("density passes (and device ms) per " + ", ".join(
+        f"{k}: {v[0]} ({v[1]:.2f} ms)" for k, v in per.items()))
+    check(per["1q channel"][0] == 1 and per["2q channel"][0] == 1 and per["2q gate"][0] == 2,
+          f"density passes {per}")
+    for ks, t in ((D.depolarizing(0.01), 0), (D.amplitude_damping(0.02), n - 1),
+                  (D.depolarizing2(0.02), (n - 2, 1))):
+        a = D.DensityMatrix(n, rho.state.clone())
+        a.apply_channel(ks, t)
+        rho.apply_channel_plain(ks, t)
+        sync()
+        err = rel_err(a.state, rho.state)
+        log(f"density apply_channel on {t} ({len(ks)} Kraus terms) against apply_channel_plain: "
+            f"rel_l2 {err:.3e}")
+        check(err <= TOL, f"apply_channel differs from apply_channel_plain by {err}")
+        del a
+    del rho
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def run_mesh_density_path():
+    """The mesh-sharded rho: 4 shards placed on the one card. n =
+    N_DENS_SMALL against DensityMatrix entry by entry, then the noisy GHZ at
+    n = N_DENS_MESH (4 shards of 2^(2n-2)) through eval_file against
+    DensityMatrix for trace, purity and one <P>."""
+    import numpy as np
+    import torch
+
+    from qubism_torch import cli
+    from qubism_torch.core.density import DensityMatrix
+    from qubism_torch.qasm.parser import parse_openqasm
+    from qubism_torch.run.compiler import EvGates
+    from qubism_torch.run.noisy import DensityProgram
+
+    mesh = [torch.device(DEV, 0) if DEV == "cuda" else torch.device(DEV)] * 4
+
+    n = N_DENS_SMALL
+    for label, src in noisy_programs(n).items():
+        path = os.path.join(EXAMPLES, f"<chip_smoke mesh {label}>.qasm")
+        ast = parse_openqasm(path, src)
+        sharded, _ = DensityProgram(ast, noise=NOISE, mesh=mesh).run(seed=1)
+        dense, _ = tally(REFERENCE, lambda: DensityProgram(ast, noise=NOISE).run(seed=1))
+        got = sharded.sim.amplitudes()
+        want = dense.state.cpu().numpy()
+        err = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        log(f"mesh density {label} on 4 shards: rel_l2 against DensityMatrix {err:.3e}, max abs "
+            f"{np.abs(got - want).max():.3e}, perm {sharded.sim.perm}, "
+            f"{sharded.sim.dispatch_count} segments and swaps")
+        check(err <= TOL, f"mesh {label}: sharded rho differs by {err}")
+        del sharded, dense
+
+    n = N_DENS_MESH
+    label, src = next(iter(noisy_programs(n).items()))
+    path = os.path.join(EXAMPLES, f"<chip_smoke mesh {label}>.qasm")
+    pauli = "X" * n  # cos(pi/4 + 0.3) on the noiseless state, then damped
+    parity = mixed_pauli(n, {0: "Z", n - 1: "Z"})
+    got = {}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+
+    def drive():
+        return cli.eval_file(path, source=src, out=buf, seed=3, backend="density", noise=NOISE,
+                             mesh=mesh, observables=[pauli, parity], shots=SHOTS,
+                             inspect=lambda r: got.update(rho=r[0]))
+
+    rc, peak = peak_gib(drive)
+    secs = time.perf_counter() - t0
+    text = buf.getvalue()
+    check(rc == 0 and text.rstrip().endswith("Done."), f"mesh {label}: rc={rc}\n{text[-2000:]}")
+    rho = got["rho"]
+    sim = rho.sim
+    check((sim.D, sim.w, sim.m) == (4, 0, 2 * n - 2), f"mesh {label}: layout {sim.D, sim.w, sim.m}")
+    check(all(t.device.type == DEV for row in sim.banks for t in row), "a shard left the card")
+    tr, pur = rho.trace(), rho.purity()
+    vals = obs_lines(text)
+    log(f"mesh density {label} on 4 shards of 2^{sim.m}: {secs:.2f} s, {sim.dispatch_count} "
+        f"segments, swaps and channels, perm {sim.perm}, trace {tr:.7f}, purity {pur:.6f}, "
+        f"<P> {vals[pauli]:.6f}, <Z0 Z{n - 1}> {vals[parity]:.6f}, peak {peak:.2f} GiB")
+    check(DEV != "cuda" or peak <= MESH_DENS_PEAK_GIB,
+          f"mesh {label}: peak {peak:.2f} GiB > {MESH_DENS_PEAK_GIB}")
+    check(abs(tr - 1) <= 1e-5 and pur < 1 - 1e-3, f"mesh {label}: trace {tr}, purity {pur}")
+    check(sum(_counts(text).values()) == SHOTS, f"mesh {label}: counts")
+    del rho, sim
+    got.clear()  # the sharded rho goes before the one-buffer rho comes
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+    # the same program on one buffer of 2^(2n) through DensityMatrix
+    prog = DensityProgram(parse_openqasm(path, src), noise=NOISE, mesh=mesh)
+
+    def single():
+        dense = DensityMatrix(n)
+        for ev in prog.events:
+            check(isinstance(ev, EvGates), f"mesh {label}: event {type(ev).__name__}")
+            for p in ev.prims:
+                dense.apply([p])
+                for _, ks, _ in prog.noise:
+                    if np.asarray(ks[0]).shape[0] == 4:
+                        if len(p.targets) == 2:
+                            dense.apply_channel(ks, tuple(p.targets))
+                    else:
+                        for q in p.targets:
+                            dense.apply_channel(ks, q)
+        return dense
+
+    dense = tally(REFERENCE, single)
+    want = (dense.trace(), dense.purity(), dense.expectation(pauli), dense.expectation(parity))
+    log(f"mesh density {label}: DensityMatrix on one buffer: trace {want[0]:.7f}, purity "
+        f"{want[1]:.6f}, <P> {want[2]:.6f}, <Z0 Z{n - 1}> {want[3]:.6f}")
+    check(abs(tr - want[0]) <= 1e-5 and abs(pur - want[1]) <= 1e-5
+          and abs(vals[pauli] - want[2]) <= 1e-5 and abs(vals[parity] - want[3]) <= 1e-5,
+          f"mesh {label}: {tr, pur, vals} against {want}")
+    del dense
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
 def phase_plain_compare():
     """The 30- and 28-qubit programs again, each queued run of gates applied
     by the kernels and, on a clone, by the plain versions."""
@@ -1152,13 +1697,15 @@ def main() -> int:
     # each path with the counters set to 0 just before it and read just after
     paths = {"file path": run_main_path, "compiled path": run_compiled_path,
              "DSL": run_dsl_path, "bandwidth probe": lambda: run_bw_probe(report),
-             "mesh path": run_mesh_path}
+             "mesh path": run_mesh_path, "observables": run_observables_path,
+             "density path": run_density_path, "mesh density path": run_mesh_density_path}
 
     def since(counts, before):
         return {k: v - before.get(k, 0) for k, v in counts.items() if v > before.get(k, 0)}
 
     for label, drive in paths.items():
         torch.cuda.reset_peak_memory_stats()
+        PEAK[0] = 0
         t0 = time.perf_counter()
         timed_before, ref_before = dict(TIMED), dict(REFERENCE)
         kernels.reset_launches()
@@ -1169,7 +1716,7 @@ def main() -> int:
         log(f"phase {label}: {time.perf_counter() - t0:.1f} s, launches {launches}"
             + (f" (in timing calls {timed})" if timed else "")
             + (f" (by the single-device reference {ref})" if ref else "")
-            + f", peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+            + f", peak {max(PEAK[0], torch.cuda.max_memory_allocated()) / 2**30:.1f} GiB")
         log(f"phase {label}: diag launches by (factors, widest k): "
             f"{ {f'{f}x{k}': c for (f, k), c in sorted(kernels.diag_shapes.items())} }")
         for name in KERNELS:

@@ -7,8 +7,10 @@ Two surfaces, as in the JAX package (``import qubism_torch as qt``):
    combinators, and :class:`Session` for stateful programs with mid-circuit
    measurement and classical feed-forward; ``CompiledCircuit(g.n,
    g.prims)`` (ops/fusion.py) runs a gate's prims fused;
+   :class:`DensityMatrix` and the Kraus channels for mixed states;
 2. the **QASM path**: ``python -m qubism_torch file.qasm`` (with
-   ``--compile`` for the compiled engine).
+   ``--compile`` for the compiled engine, ``--backend density --noise`` for
+   the exact density engine), and the REPL with no file.
 
 Both run on one NVIDIA Hopper GPU through hand-written CUDA kernels for the
 state-vector passes (ops/kernels.py, csrc/). Importing the package imports
@@ -18,6 +20,15 @@ torch and numpy only; the kernels are built on first use.
 from .config import TOLERANCE, config  # noqa: F401
 from .core import algebra  # noqa: F401
 from .core.creg import CReg, bit  # noqa: F401
+from .core.density import (  # noqa: F401
+    DensityMatrix,
+    amplitude_damping,
+    bit_flip,
+    depolarizing,
+    depolarizing2,
+    phase_damping,
+    phase_flip,
+)
 from .core.gates import (  # noqa: F401
     Gate,
     Prim,

@@ -1,35 +1,101 @@
-"""Command-line interface: file evaluation.
+"""Command-line interface: file evaluation and the QASM REPL.
 
 Counterpart of reference app/Main.hs: ``python -m qubism_torch file.qasm``
-evaluates a file and prints "Done.". Ported flags: ``--seed``, ``--shots``,
-``--dump-state``, ``--compile``, ``--fuse-width``, ``--mesh``,
-``--reference-compat``, ``-I``, ``--include-base`` and ``--verbose``. Every
-other flag of the JAX package's CLI (``--observable``, ``--backend``, ...),
-and the REPL (no file), exit with code 2 and "not ported yet".
+evaluates a file and prints "Done."; with no file it starts a ``QASM> ``
+REPL where the parser's symbol table and the simulator state persist across
+lines and a failing line leaves both untouched (atomic lines,
+Main.hs:39-57). ``:q`` quits, ``:obs PAULI`` prints an expectation,
+``:save PATH`` / ``:load PATH`` checkpoint the session, ``:cd DIR`` rebases
+``include``.
+
+Flags: ``--seed``, ``--shots``, ``--dump-state``, ``--dtype``, ``--compile``,
+``--fuse-width``, ``--mesh``, ``--observable`` (repeatable), ``--backend
+density`` with ``--noise`` (the exact density engine, on one device or over
+``--mesh D``), ``--reference-compat``, ``-I``, ``--include-base`` and
+``--verbose``. The flags of the JAX package's CLI whose engines are not
+ported yet are parsed and exit with code 2 and "not ported yet": ``--backend
+stabilizer|mps``, ``--noise`` without ``--backend density``,
+``--trajectories``, ``--traj-engine``, ``--chi``, ``--trunc-budget`` and
+``--max-chi``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from .config import config
-from .qasm.parser import QasmParseError, parse_openqasm
-from .run.interpreter import run_program
-from .run.progstate import ProgState, QasmRuntimeError
+from .qasm.parser import (
+    ParserState,
+    QasmParseError,
+    initial_state,
+    parse_openqasm,
+    parse_openqasm_incremental,
+)
+from .run.interpreter import Interpreter, run_program
+from .run.progstate import ProgState, QasmRuntimeError, blank_state
+
+
+#: flags of the JAX package's CLI whose engines are not ported yet: parsed,
+#: then refused by :func:`_unported`
+_UNPORTED_FLAGS = {
+    "--trajectories": dict(type=int, metavar="T"),
+    "--traj-engine": dict(choices=["vmap", "fused", "auto"]),
+    "--chi": dict(type=int, metavar="X"),
+    "--trunc-budget": dict(type=float, metavar="W"),
+    "--max-chi": dict(type=int, metavar="X"),
+}
+
+
+def _unported(args) -> str | None:
+    """The first flag of ``args`` that names an engine not ported yet."""
+    if args.backend in ("stabilizer", "mps"):
+        return f"--backend {args.backend}"
+    for flag in _UNPORTED_FLAGS:
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            return flag
+    if args.noise is not None and args.backend != "density":
+        return "--noise without --backend density"
+    return None
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="qubism",
-        description="OpenQASM 2.0 simulator on PyTorch/CUDA (file mode)",
+        description="OpenQASM 2.0 simulator on PyTorch/CUDA (file mode or REPL)",
     )
-    p.add_argument("file", nargs="?", help="QASM file to evaluate")
+    p.add_argument("file", nargs="?", help="QASM file to evaluate; omit for a REPL")
     p.add_argument("--seed", type=int, default=None, help="PRNG seed for measurements")
     p.add_argument("--shots", type=int, default=None,
                    help="sample the final state this many times and print counts")
     p.add_argument("--dump-state", action="store_true",
                    help="print the final internal state (like a trailing :dump)")
+    p.add_argument("--dtype", choices=["complex64", "complex128"], default=None,
+                   help="requested amplitude precision. The engine stores "
+                        "amplitudes as one complex64 tensor; complex128 is "
+                        "rejected (the CUDA kernels are written for float2)")
+    p.add_argument("--backend",
+                   choices=["statevector", "stabilizer", "mps", "density"],
+                   default="statevector",
+                   help="simulation engine: the dense state-vector engine "
+                        "(default) or the exact density-matrix engine "
+                        "(open-system: combine with --noise; 4^n amplitudes, "
+                        "n <= 14 on one device, shard past that with "
+                        "--mesh). stabilizer and mps are not ported yet")
+    p.add_argument("--noise", metavar="SPEC", default=None,
+                   help="circuit-level noise model for --backend density, "
+                        "e.g. 'depolarizing:0.01' or 'ad:0.05,pd:0.02' "
+                        "(channels: depolarizing, amplitude-damping/ad, "
+                        "phase-damping/pd, bitflip/bf, phaseflip/pf, dep2: "
+                        "2q depolarizing after every 2-qubit gate); gate "
+                        "channels apply to every qubit a gate touches")
+    p.add_argument("--observable", action="append", default=[],
+                   metavar="PAULI",
+                   help="print <P> for a Pauli string over the declared "
+                        "qubits (e.g. ZZI; repeatable)")
+    for flag, kw in _UNPORTED_FLAGS.items():
+        p.add_argument(flag, default=None, help="not ported yet", **kw)
     p.add_argument("--compile", action="store_true", dest="compile_mode",
                    help="run the program as fused segments of the compiled "
                         "engine (registers are laid out in one state vector "
@@ -65,6 +131,11 @@ def _apply_flags(args):
         from .utils import profiling
 
         profiling.VERBOSE = True
+    if args.dtype == "complex128":
+        raise SystemExit(
+            "qubism: complex128 amplitudes are not supported: the engine "
+            "stores one complex64 tensor, and the CUDA kernels in "
+            "qubism_torch/csrc are written for float2 amplitudes")
     if args.reference_compat:
         config.reference_u3_bug = True
         config.reference_sqrt_born = True
@@ -74,7 +145,8 @@ def _apply_flags(args):
 def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
               shots: int | None = None, out=None, source: str | None = None,
               inspect=None, compile_mode: bool = False, fuse_width: int = 5,
-              mesh=None) -> int:
+              mesh=None, observables=(), backend: str = "statevector",
+              noise: str | None = None) -> int:
     """Evaluate a file (reference ``evalFile``, Main.hs:23-32). Returns the
     exit code. ``source``, when given, is parsed as the text of ``path``
     (includes resolve relative to it) instead of reading the file;
@@ -85,7 +157,11 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
     at most ``fuse_width`` qubits; ``mesh`` (a shard count or a device
     sequence) runs it sharded (:meth:`CompiledProgram.run_sharded`), and
     ``inspect`` then sees the cregs but no state vector. A mesh of more GPUs
-    than the machine has exits 2."""
+    than the machine has exits 2. ``observables`` are Pauli strings over the
+    declared qubits; each prints ``<P> = value``. ``backend="density"`` runs
+    the exact density engine (:class:`~qubism_torch.run.noisy.DensityProgram`)
+    under the ``noise`` spec, on one device or sharded over ``mesh``;
+    ``inspect`` then sees ``(rho, cregs)``."""
     out = out or sys.stdout
     if source is None:
         try:
@@ -106,8 +182,19 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
     except RuntimeError as e:
         print(f"qubism: {e}", file=out)
         return 2
+    if backend not in ("statevector", "density"):
+        print(f"qubism: --backend {backend}: not ported yet", file=out)
+        return 2
+    if noise is not None and backend != "density":
+        print("qubism: --noise without --backend density: not ported yet", file=out)
+        return 2
     try:
-        if mesh:
+        if backend == "density":
+            rc, ps = _run_density(ast, noise, mesh, compile_mode, seed, dump_state,
+                                  shots, observables, out)
+            if rc:
+                return rc
+        elif mesh:
             from .run.compiler import CompiledProgram
 
             prog = CompiledProgram(ast, max_block=fuse_width)
@@ -116,7 +203,11 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
             except ValueError as e:
                 print(f"qubism: --mesh {mesh}: {e}", file=out)
                 return 2
-            ps = _run_mesh(prog, devices, seed, dump_state, shots, out)
+            ps, sim = _run_mesh(prog, devices, seed, dump_state, shots, out)
+            if observables and prog.n:
+                rc = _print_observables(observables, sim.expectation, out)
+                if rc:
+                    return rc
         elif compile_mode:
             from .run.compiler import CompiledProgram
 
@@ -125,12 +216,26 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
             if dump_state:
                 out.write(prog._pretty(state, cregs))
             ps = prog.prog_state(state, cregs, gen)
+            if shots:
+                _print_shot_counts(ps, shots, out)
+            if observables and prog.n:
+                from .ops.measure import expectation_pauli
+
+                rc = _print_observables(
+                    observables, lambda p_: expectation_pauli(state, prog.n, p_), out)
+                if rc:
+                    return rc
         else:
             ps = run_program(ast, seed=seed)
             if dump_state:
                 out.write(ps.pretty())
-        if shots and not mesh:  # a mesh run printed its own
-            _print_shot_counts(ps, shots, out)
+            if shots:
+                _print_shot_counts(ps, shots, out)
+            if observables and ps.qregs:
+                rc = _print_observables(
+                    observables, lambda p_: _interp_expectation(ps, p_), out)
+                if rc:
+                    return rc
     except QasmRuntimeError as e:
         print(e, file=out)
         return 1
@@ -140,10 +245,41 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
     return 0
 
 
-def _run_mesh(prog, devices, seed, dump_state, shots, out) -> ProgState:
+def _run_density(ast, noise, mesh, compile_mode, seed, dump_state, shots, observables,
+                 out):
+    """The exact density backend: run the program, print its dump, shot
+    counts and observables as the JAX package's ``--backend density`` does.
+    Returns (exit code, (rho, cregs))."""
+    import torch
+
+    from .run.noisy import DensityProgram
+
+    if compile_mode:
+        print("qubism: --backend density is exact (no compile/trajectories)", file=out)
+        return 2, None
+    try:
+        prog = DensityProgram(ast, noise=noise, mesh=mesh)
+        # the shape of a sharded rho is validated when it is allocated
+        rho, cregs = prog.run(seed=seed, dump_writer=out.write)
+    except ValueError as e:
+        print(f"qubism: {e}", file=out)
+        return 2, None
+    if dump_state:
+        out.write(prog._pretty(rho, cregs))
+    if shots and prog.n:
+        gen = torch.Generator().manual_seed(0 if seed is None else seed)
+        _print_basis_counts(rho.sample(shots, gen), "(x)".join(prog.layout), shots, out)
+    if observables and prog.n:
+        rc = _print_observables(observables, rho.expectation, out)
+        if rc:
+            return rc, None
+    return 0, (rho, cregs)
+
+
+def _run_mesh(prog, devices, seed, dump_state, shots, out):
     """Run a program over the mesh of ``devices``, print its dump and shot
-    counts as the JAX package's --mesh path does; returns its cregs as a
-    ProgState with no state vector."""
+    counts as the JAX package's --mesh path does; returns (its cregs as a
+    ProgState with no state vector, the ShardedSim or None)."""
     import numpy as np
 
     from .utils.profiling import vlog
@@ -159,7 +295,7 @@ def _run_mesh(prog, devices, seed, dump_state, shots, out) -> ProgState:
         print(f"Counts for state vector {prog.name} ({shots} shots):", file=out)
         for v, c in zip(vals, counts):
             print(f"  |{format(int(v), f'0{prog.n}b')}>: {int(c)}", file=out)
-    return ProgState(cregs=dict(cregs), gen=gen)
+    return ProgState(cregs=dict(cregs), gen=gen), sim
 
 
 def _print_shot_counts(ps: ProgState, shots: int, out):
@@ -167,10 +303,148 @@ def _print_shot_counts(ps: ProgState, shots: int, out):
 
     for name in sorted(ps.stvecs):
         sv = ps.stvecs[name]
-        counts = sample_counts(sv.state, sv.n, shots, ps.gen)
-        print(f"Counts for state vector {name} ({shots} shots):", file=out)
-        for basis in sorted(counts):
-            print(f"  |{basis}>: {counts[basis]}", file=out)
+        _print_basis_counts(sample_counts(sv.state, sv.n, shots, ps.gen), name, shots, out)
+
+
+def _print_basis_counts(counts, name, shots, out):
+    """The ``Counts for state vector ...`` block shared by the shots paths;
+    ``counts`` maps basis bitstring -> count."""
+    print(f"Counts for state vector {name} ({shots} shots):", file=out)
+    for basis in sorted(counts):
+        print(f"  |{basis}>: {counts[basis]}", file=out)
+
+
+def _print_observables(observables, compute, out) -> int:
+    """Print one ``<P> = value`` line per --observable; ``compute(pauli)``
+    returns a float. Returns 0 on success, 2 on a rejected Pauli string."""
+    for pauli in observables:
+        try:
+            val = compute(pauli.upper())
+        except ValueError as e:
+            print(f"qubism: --observable: {e}", file=out)
+            return 2
+        print(f"<{pauli.upper()}> = {float(val):.6f}", file=out)
+    return 0
+
+
+def _interp_expectation(ps: ProgState, pauli: str) -> float:
+    """<P> on the interpreter's lazily fused state: the global state is a
+    tensor product of clusters (ProgState.stvecs), so <P> factorizes into
+    the product of per-cluster expectations. Qubit order = qreg declaration
+    order, matching the compiled layout."""
+    from .ops.measure import _check_pauli
+
+    slots = [(qr.target, qr.start + k)
+             for qr in ps.qregs.values() for k in range(qr.size)]
+    pauli = _check_pauli(pauli, len(slots))
+    per: dict = {}
+    for (tgt, local), c in zip(slots, pauli):
+        per.setdefault(tgt, {})[local] = c
+    val = 1.0
+    for tgt, assign in per.items():
+        sv = ps.stvecs[tgt]
+        s = "".join(assign.get(i, "I") for i in range(sv.n))
+        if set(s) != {"I"}:
+            val *= sv.expectation(s)
+    return val
+
+
+class Repl:
+    """The QASM REPL: incremental parse + incremental run, atomic lines."""
+
+    PROMPT = "QASM> "
+
+    def __init__(self, seed: int | None = None, out=None,
+                 include_base: str | None = None):
+        # REPL lines have no source file, so 'include' resolves relative to
+        # ``include_base`` (default: the current directory). A pseudo file
+        # path inside that directory makes the includer-relative rule do the
+        # work; ':cd DIR' rebases it mid-session.
+        base = os.path.abspath(include_base or os.getcwd())
+        self.pstate: ParserState = initial_state(os.path.join(base, "<repl>"))
+        self.prog: ProgState = blank_state(seed)
+        self.out = out or sys.stdout
+
+    def line(self, text: str) -> bool:
+        """Process one input line. Returns False when the REPL should exit."""
+        stripped = text.strip()
+        if stripped == ":q":
+            return False
+        if stripped == ":cd" or stripped.startswith(":cd "):
+            arg = stripped[3:].strip()
+            base = os.path.abspath(arg or os.getcwd())
+            if not os.path.isdir(base):
+                print(f"qubism: :cd: no such directory: {base}", file=self.out)
+                return True
+            self.pstate = ParserState(dict(self.pstate.id_table),
+                                      os.path.join(base, "<repl>"))
+            print(f"include base: {base}", file=self.out)
+            return True
+        if stripped.startswith(":save ") or stripped.startswith(":load "):
+            return self._checkpoint_cmd(stripped)
+        if stripped.startswith(":observable ") or stripped.startswith(":obs "):
+            pauli = stripped.split(None, 1)[1].rstrip(";").strip()
+            try:
+                val = _interp_expectation(self.prog, pauli.upper())
+            except ValueError as e:
+                print(f"qubism: :observable: {e}", file=self.out)
+                return True
+            print(f"<{pauli.upper()}> = {val:.6f}", file=self.out)
+            return True
+        try:
+            ast, pstate2 = parse_openqasm_incremental(self.pstate, text)
+        except QasmParseError as e:
+            self.out.write(e.pretty())
+            return True
+        # the appliers work in place: the line runs on a copy that owns its
+        # tensors, and replaces the kept state only when all of it succeeded
+        new = self.prog.copy()
+        interp = Interpreter(new, dump_writer=self.out.write)
+        try:
+            for stmt in ast:
+                interp.run_stmt(stmt)
+            interp.flush()  # materialize the line's trailing unitary run
+        except QasmRuntimeError as e:
+            print(e, file=self.out)
+            return True  # discard: both parser and program state stay put
+        self.pstate = pstate2
+        self.prog = new
+        return True
+
+    def _checkpoint_cmd(self, stripped: str) -> bool:
+        """``:save <path>`` / ``:load <path>``: checkpoint/resume the full
+        session (simulator state + parser symbol table)."""
+        from .utils.checkpoint import load_progstate, save_progstate
+
+        cmd, _, path = stripped.partition(" ")
+        path = path.strip()
+        try:
+            if cmd == ":save":
+                save_progstate(self.prog, path, self.pstate)
+                print(f"Saved session to {path}", file=self.out)
+            else:
+                ps, pstate = load_progstate(path)
+                if ps.gen is None:  # a file of the JAX package: keep ours
+                    ps.gen = self.prog.gen
+                self.prog = ps
+                if pstate is not None:
+                    self.pstate = pstate
+                print(f"Loaded session from {path}", file=self.out)
+        except OSError as e:
+            print(f"qubism: {e}", file=self.out)
+        return True
+
+    def run(self, infile=None):
+        infile = sys.stdin if infile is None else infile
+        while True:
+            self.out.write(self.PROMPT)
+            self.out.flush()
+            raw = infile.readline()
+            if raw == "":  # EOF
+                self.out.write("\n")
+                return
+            if not self.line(raw.rstrip("\n")):
+                return
 
 
 def main(argv=None) -> int:
@@ -178,13 +452,26 @@ def main(argv=None) -> int:
     if rest:
         print(f"qubism: {' '.join(rest)}: not ported yet", file=sys.stderr)
         return 2
-    if not args.file:
-        print("qubism: the REPL (no file): not ported yet", file=sys.stderr)
+    missing = _unported(args)
+    if missing:
+        print(f"qubism: {missing}: not ported yet", file=sys.stderr)
         return 2
     _apply_flags(args)
-    return eval_file(args.file, seed=args.seed, dump_state=args.dump_state,
-                     shots=args.shots, compile_mode=args.compile_mode,
-                     fuse_width=args.fuse_width, mesh=args.mesh)
+    if args.file:
+        return eval_file(args.file, seed=args.seed, dump_state=args.dump_state,
+                         shots=args.shots, compile_mode=args.compile_mode,
+                         fuse_width=args.fuse_width, mesh=args.mesh,
+                         observables=args.observable, backend=args.backend,
+                         noise=args.noise)
+    try:
+        from .ops.apply import device
+
+        device()
+    except RuntimeError as e:
+        print(f"qubism: {e}", file=sys.stderr)
+        return 2
+    Repl(seed=args.seed, include_base=args.include_base).run()
+    return 0
 
 
 if __name__ == "__main__":

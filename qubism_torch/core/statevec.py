@@ -87,6 +87,29 @@ class StateVec:
         src/Qubism/StateVec.hs:94-95)."""
         return StateVec(self.n, self.state.conj_physical())
 
+    def expectation(self, pauli: str) -> float:
+        """<psi|P|psi> for a Pauli string like "XZI..." (one char per
+        qubit, I/X/Y/Z; qubit 0 = leftmost), as one chunked reduction
+        (ops/measure.py:expectation_pauli)."""
+        return _measure.expectation_pauli(self.state, self.n, pauli)
+
+    def expectation_sum(self, terms) -> float:
+        """<psi| sum_j c_j P_j |psi> for ``terms = [(coef, pauli), ...]``,
+        the terms grouped by their flip mask."""
+        return _measure.expectation_pauli_sum(self.state, self.n, terms)
+
+    def reduced_density_matrix(self, subset) -> np.ndarray:
+        """rho_A = Tr_B |psi><psi| for qubit subset A (host complex)."""
+        from ..ops.rdm import reduced_density_matrix
+
+        return reduced_density_matrix(self.state, self.n, subset)
+
+    def entanglement_entropy(self, subset, base: float | None = None) -> float:
+        """Von Neumann entropy of rho_A (nats; ``base=2`` for bits)."""
+        from ..ops.rdm import entanglement_entropy
+
+        return entanglement_entropy(self.state, self.n, subset, base)
+
     # -- amplitude queries -----------------------------------------------------
 
     def _basis_index(self, bits) -> int:

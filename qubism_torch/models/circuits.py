@@ -142,6 +142,24 @@ def qaoa_prims(n: int, edges, gammas, betas) -> list[Prim]:
     return prims
 
 
+def qaoa_maxcut_energy(state, n: int, edges) -> float:
+    """MaxCut objective <sum_edges (1 - Z_i Z_j)/2> as one Pauli sum whose
+    terms all share the empty flip mask (one pass over |psi|^2). Accepts a
+    StateVec, a ShardedSim or a DensityMatrix (anything with
+    ``expectation_sum``), or a state tensor."""
+    from ..ops.measure import expectation_pauli_sum
+
+    terms = []
+    for i, j in edges:
+        p = ["I"] * n
+        p[i] = p[j] = "Z"
+        terms.append((-0.5, "".join(p)))
+    const = 0.5 * len(edges)
+    if hasattr(state, "expectation_sum"):
+        return const + state.expectation_sum(terms)
+    return const + expectation_pauli_sum(state, n, terms)
+
+
 def qpe_prims(t: int, phi: float) -> list[Prim]:
     """Textbook phase estimation of the eigenphase ``phi`` (in turns) of
     diag(1, e^{2 pi i phi}), with t counting qubits and the eigenstate on

@@ -8,7 +8,9 @@ local index.
 
 :func:`state_from_planes` / :func:`planes_from_state` convert to and from
 the JAX package's (re, im) float32 planes (flat or canonical (R, 2048)), so
-tests can feed one state to both packages.
+tests can feed one state to both packages. A vectorized density matrix
+(core/density.py) crosses through the same pair unchanged: both packages
+keep rho's row index in the top n qubits of a 2n-qubit state.
 """
 
 from __future__ import annotations

@@ -159,3 +159,180 @@ def probabilities(state: torch.Tensor) -> torch.Tensor:
     """|psi|^2 over the computational basis, float32."""
     p = state.abs()
     return p.mul_(p)
+
+
+# ---------------------------------------------------------------------------
+# Pauli-string expectation values
+# ---------------------------------------------------------------------------
+#
+# P|x> = i^{#Y} s(x) |x ^ f>, f the X/Y bit mask, s(x) = (-1)^popcount(x & z),
+# z the Y/Z bit mask. So (P psi)[y] = i^{#Y} s(y ^ f) psi[y ^ f] and
+# <psi|P|psi> = Re(i^{#Y} sum_x conj(psi[x ^ f]) s(x) psi[x]). These are
+# plain torch ops, as the JAX package's were plain XLA. The state is walked
+# in chunks of 2^_EXP_CHUNK indices: the high bits of f pick the partner
+# chunk (a view), the low bits are one gather inside it, and the signs are a
+# row table times a column table over a (rows, cols) view of the chunk, so
+# no state-sized temporary or index tensor is ever made. Every chunk's
+# partial sums are float64.
+
+#: log2 of the chunk the expectation functions walk a state in
+_EXP_CHUNK = 22
+#: log2 of the columns of a chunk's (rows, cols) view
+_EXP_COLS = 11
+
+
+def _check_pauli(pauli: str, n: int) -> str:
+    pauli = pauli.upper()
+    if len(pauli) != n or any(c not in "IXYZ" for c in pauli):
+        raise ValueError(f"Pauli string must be {n} chars of I/X/Y/Z: {pauli!r}")
+    return pauli
+
+
+def _apply_iy(tr: float, ti: float, n_y: int) -> complex:
+    return complex(tr, ti) * (1j ** (n_y % 4))
+
+
+def pauli_masks(pauli: str) -> tuple[int, int, int]:
+    """(flip mask, sign mask, #Y) of a checked Pauli string as amplitude
+    index bits: qubit q is bit n-1-q."""
+    n = len(pauli)
+    f = z = 0
+    for q, c in enumerate(pauli):
+        if c in "XY":
+            f |= 1 << (n - 1 - q)
+        if c in "YZ":
+            z |= 1 << (n - 1 - q)
+    return f, z, pauli.count("Y")
+
+
+def _parity_sign(idx: np.ndarray, mask: int) -> np.ndarray:
+    """(-1)^popcount(idx & mask) as float64, for int64 ``idx``."""
+    x = idx & mask
+    for s in (32, 16, 8, 4, 2, 1):
+        x = x ^ (x >> s)
+    return 1.0 - 2.0 * (x & 1).astype(np.float64)
+
+
+def _chunk_shape(n: int) -> tuple[int, int, int]:
+    """(c, lr, lc): a state of n qubits is walked in chunks of 2^c indices,
+    each viewed as (2^lr, 2^lc)."""
+    c = min(n, _EXP_CHUNK)
+    lc = min(c, _EXP_COLS)
+    return c, c - lc, lc
+
+
+def _walk(n: int, f: int, zs, dev):
+    """What a chunked walk of a 2^n state needs for the flip mask ``f`` and
+    the sign masks ``zs``: (c, lr, lc), the flip's chunk part, the gather
+    index of its in-chunk part on ``dev`` (None when it has none), and the
+    float64 sign tables of each mask as numpy arrays: rows (k, 2^lr),
+    columns (k, 2^lc) and chunks (2^(n-c), k)."""
+    c, lr, lc = _chunk_shape(n)
+    f_lo = f & ((1 << c) - 1)
+    gather = None
+    if f_lo:
+        gather = torch.from_numpy(np.arange(1 << c, dtype=np.int64) ^ f_lo).to(dev)
+    ridx = np.arange(1 << lr, dtype=np.int64)
+    cidx = np.arange(1 << lc, dtype=np.int64)
+    hidx = np.arange(1 << (n - c), dtype=np.int64)
+    srows = np.stack([_parity_sign(ridx, (z >> lc) & ((1 << lr) - 1)) for z in zs])
+    scols = np.stack([_parity_sign(cidx, z & ((1 << lc) - 1)) for z in zs])
+    shi = np.stack([_parity_sign(hidx, z >> c) for z in zs], axis=1)
+    return (c, lr, lc), f >> c, gather, srows, scols, shi
+
+
+def pauli_pair_sums(a: torch.Tensor, b: torch.Tensor, n: int, f: int, zs) -> np.ndarray:
+    """sum_x conj(b[x ^ f]) s_z(x) a[x] for every sign mask z in ``zs``: a
+    host complex128 array of len(zs), without the i^{#Y} factors. ``a`` and
+    ``b`` are 2^n complex64 tensors; ``b is a`` for a single state, and a
+    partner buffer on the mesh path, which may lie on another device and is
+    then copied over one chunk at a time. All the terms of one flip
+    mask share the partner read and the product; a no-flip group of one
+    state reads |a|^2 once."""
+    zs = [int(z) for z in zs]
+    kg = len(zs)
+    dev = a.device
+    (c, lr, lc), f_hi, gather, srows, scols, shi = _walk(n, f, zs, dev)
+    srows, scols, shi = (torch.from_numpy(t).to(dev) for t in (srows, scols, shi))
+    diagonal = b is a and f == 0
+    av = a.view(-1, 1 << c)
+    bv = b.view(-1, 1 << c)
+    width = 1 if diagonal else 2
+    acc = torch.zeros(kg, width, dtype=torch.float64, device=dev)
+    for h in range(av.shape[0]):
+        ac = av[h]
+        if diagonal:
+            t = ac.abs().double()
+            t.mul_(t)
+        else:
+            bc = bv[h ^ f_hi]
+            if bc.device != dev:  # a partner bank on another device of a mesh
+                bc = bc.to(dev)
+            if gather is not None:
+                bc = bc[gather]
+            t = torch.view_as_real(torch.conj_physical(bc).mul_(ac)).double()
+        # sum over the rows with each term's row signs, then over the
+        # columns with its column signs
+        part = (srows @ t.view(1 << lr, -1)).view(kg, 1 << lc, width)
+        part = (part * scols[:, :, None]).sum(dim=1)
+        acc.addcmul_(part, shi[h][:, None])
+    out = acc.cpu().numpy()
+    if diagonal:
+        return out[:, 0].astype(np.complex128)
+    return out[:, 0] + 1j * out[:, 1]
+
+
+def expectation_pauli(state: torch.Tensor, n: int, pauli: str) -> float:
+    """<psi|P|psi> for a Pauli string like "XZIIY" (len n; I/X/Y/Z, qubit 0
+    leftmost) as one chunked reduction, with no dense operator. Hermitian,
+    so the result is real (the imaginary part is numerical noise)."""
+    pauli = _check_pauli(pauli, n)
+    f, z, n_y = pauli_masks(pauli)
+    s = pauli_pair_sums(state, state, n, f, (z,))[0]
+    return float(_apply_iy(s.real, s.imag, n_y).real)
+
+
+def group_terms(paulis) -> dict[int, list[int]]:
+    """Indices of checked Pauli strings grouped by their X/Y flip mask, in
+    order of first appearance."""
+    groups: dict[int, list[int]] = {}
+    for j, p in enumerate(paulis):
+        groups.setdefault(pauli_masks(p)[0], []).append(j)
+    return groups
+
+
+def expectation_pauli_sum(state: torch.Tensor, n: int, terms) -> float:
+    """<psi| sum_j c_j P_j |psi> for ``terms = [(coef, pauli), ...]``. Terms
+    are grouped by their X/Y flip mask: a group shares one partner read, and
+    a whole diagonal (Ising/QAOA) Hamiltonian is one pass over |psi|^2."""
+    paulis = [_check_pauli(p, n) for _, p in terms]
+    total = 0.0
+    for f, idxs in group_terms(paulis).items():
+        sums = pauli_pair_sums(state, state, n, f,
+                               [pauli_masks(paulis[j])[1] for j in idxs])
+        for s, j in zip(sums, idxs):
+            total += terms[j][0] * _apply_iy(s.real, s.imag, paulis[j].count("Y")).real
+    return float(total)
+
+
+def apply_pauli(state: torch.Tensor, pauli: str, n: int) -> torch.Tensor:
+    """P|psi> as a new tensor (the counterpart of the JAX package's
+    ``apply_pauli_traced``): out[y] = i^{#Y} s(y ^ f) psi[y ^ f]
+    = (-i)^{#Y} s(y) psi[y ^ f], since s(y ^ f) = s(y) s(f) and
+    s(f) = (-1)^{#Y}."""
+    pauli = _check_pauli(pauli, n)
+    f, z, n_y = pauli_masks(pauli)
+    dev = state.device
+    (c, lr, lc), f_hi, gather, srows, scols, shi = _walk(n, f, (z,), dev)
+    phase = (-1j) ** (n_y % 4)
+    srow = torch.from_numpy(srows[0].astype(np.float32)).to(dev)[:, None]
+    scol = torch.from_numpy(scols[0].astype(np.float32)).to(dev)[None, :]
+    out = torch.empty_like(state)
+    sv = state.view(-1, 1 << c)
+    ov = out.view(-1, 1 << lr, 1 << lc)
+    for h in range(sv.shape[0]):
+        src = sv[h ^ f_hi]
+        src = src[gather] if gather is not None else src
+        torch.mul(src.view(1 << lr, 1 << lc), srow, out=ov[h])
+        ov[h].mul_(scol).mul_(complex(phase * shi[h, 0]))
+    return out

@@ -33,8 +33,12 @@ How each operation runs:
 
 Left out, as what the JAX package did for its TPU stack and its remote
 dispatch: jit caches, the chunking of segments into sub-programs and the
-draining of the dispatch queue. ``expectation`` and ``expectation_sum`` are
-not ported yet.
+draining of the dispatch queue.
+
+* Pauli expectations: the device and bank bits of a string's flip mask pick
+  each bank's partner bank, their Y/Z bits give a sign per bank, and the local
+  bits go through ``measure.pauli_pair_sums`` on the pair of banks; a partner
+  on another device is read chunk by chunk. Summed in float64 on the host.
 """
 
 from __future__ import annotations
@@ -587,6 +591,51 @@ class ShardedSim:
         order = sorted(range(k), key=lambda j: phys[j])  # table axis a = qubit order[a]
         return (self._table(phys).reshape((2,) * k)
                 .transpose([order.index(j) for j in range(k)]).reshape(-1))
+
+    # -- observables -----------------------------------------------------------------
+
+    def _to_phys_pauli(self, pauli: str) -> str:
+        """A Pauli string in logical qubit order, uppercased and checked, as
+        the string over the physical bit positions."""
+        pauli = pauli.upper()
+        if len(pauli) != self.n or any(c not in "IXYZ" for c in pauli):
+            raise ValueError(
+                f"Pauli string must be {self.n} chars of I/X/Y/Z: {pauli!r}")
+        phys = ["I"] * self.n
+        for q, c in enumerate(pauli):
+            phys[self.perm[q]] = c
+        return "".join(phys)
+
+    def expectation(self, pauli: str) -> float:
+        """Pauli-string expectation (logical qubit order, I/X/Y/Z)."""
+        return self.expectation_sum([(1.0, pauli)])
+
+    def expectation_sum(self, terms) -> float:
+        """<psi| sum_j c_j P_j |psi> for ``terms = [(coef, pauli), ...]``.
+        Terms are grouped by their flip mask; for each group, bank (i, s)
+        is paired with the bank whose device and bank bits differ by the
+        mask's upper part, and the pair is reduced over the local bits by
+        ``measure.pauli_pair_sums``."""
+        m, w = self.m, self.w
+        # #Y is counted on the uppercased physical string: the relabelling
+        # keeps the letters, and a lowercase 'y' must not lose its factor i
+        paulis = [self._to_phys_pauli(p) for _, p in terms]
+        masks = [_measure.pauli_masks(p) for p in paulis]
+        lmask = (1 << m) - 1
+        total = 0.0
+        for f, idxs in _measure.group_terms(paulis).items():
+            zs_loc = [masks[j][1] & lmask for j in idxs]
+            zs_out = np.array([masks[j][1] >> m for j in idxs], dtype=np.int64)
+            sums = np.zeros(len(idxs), dtype=np.complex128)
+            for i, s, a in self._each():
+                o = (i << w) | s
+                po = o ^ (f >> m)
+                b = self.banks[po & ((1 << w) - 1)][po >> w]
+                part = _measure.pauli_pair_sums(a, b, m, f & lmask, zs_loc)
+                sums += part * _measure._parity_sign(zs_out & o, -1)
+            for sm, j in zip(sums, idxs):
+                total += terms[j][0] * _measure._apply_iy(sm.real, sm.imag, masks[j][2]).real
+        return float(total)
 
     # -- sampling --------------------------------------------------------------------
 

@@ -240,6 +240,10 @@ class CompiledProgram:
                         dump_writer(self._pretty(state, cregs))
 
         exec_events(self.events)
+        # the recursive closure is a reference cycle that holds the state:
+        # break it, so that the state's memory is freed when the caller drops
+        # it, not at the next garbage collection
+        exec_events = None
         return state, cregs, gen
 
     def mesh_devices(self, mesh=None):
@@ -294,6 +298,7 @@ class CompiledProgram:
                     dump_writer(self._pretty_for(self.sim_state(sim), cregs))
 
         exec_events(self.events)
+        exec_events = None  # as in run(): no cycle may hold the banks
         return sim, cregs, gen
 
     def sim_state(self, sim) -> StateVec | None:

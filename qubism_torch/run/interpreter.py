@@ -28,7 +28,6 @@ import numpy as np
 from ..config import config
 from ..core.creg import CReg
 from ..core.gates import Prim, is_diagonal, u3_matrix
-from ..core.statevec import StateVec
 from ..ops import measure as _measure
 from ..qasm import ast as A
 from .progstate import CustomGate, ProgState, blank_state
@@ -49,12 +48,11 @@ def run_program_incremental(ast, ps: ProgState) -> ProgState:
     Simulation.hs:47-53). ``ps`` is never mutated: on success a new state is
     returned, on error the exception propagates and the caller's state is
     intact — the REPL's atomic-line contract. The kernels update states in
-    place, so the new state starts from clones of the caller's tensors (a
-    run from a blank state clones nothing)."""
+    place, so the new state starts from ``ps.copy()``'s clones of the
+    caller's tensors (a run from a blank state clones nothing)."""
     from ..utils.profiling import vtimed
 
     new = ps.copy()
-    new.stvecs = {k: StateVec(sv.n, sv.state.clone()) for k, sv in new.stvecs.items()}
     interp = Interpreter(new)
 
     for i, stmt in enumerate(ast):

@@ -14,9 +14,9 @@ Differences from the reference (all deliberate, see config module docs):
 * state updates always go to the *backing* state vector — the reference
   orphans single-qubit-gate updates on fused registers by writing them under
   the QReg's name (Simulation.hs:100);
-* ``ProgState.copy()`` shares the state tensors; the kernels update them in
-  place, so a caller that must keep its state intact across a failed line
-  clones them (``run_program_incremental`` does).
+* ``ProgState.copy()`` clones the state tensors: the kernels update them in
+  place (the JAX package's appliers return new arrays), so a copy that shared
+  them would let a failed REPL line corrupt the state that is kept.
 """
 
 from __future__ import annotations
@@ -72,13 +72,14 @@ class ProgState:
     gen: torch.Generator | None = None
 
     def copy(self) -> "ProgState":
-        """A copy sharing the state tensors, with its own generator."""
+        """A copy with its own state tensors and its own generator."""
         gen = None
         if self.gen is not None:
             gen = torch.Generator()
             gen.set_state(self.gen.get_state())
         return ProgState(
-            dict(self.stvecs), dict(self.qregs), dict(self.cregs),
+            {k: StateVec(sv.n, sv.state.clone()) for k, sv in self.stvecs.items()},
+            dict(self.qregs), dict(self.cregs),
             dict(self.funcs), self.pos, gen,
         )
 

@@ -51,5 +51,14 @@ class Session:
         """Measure all qubits sequentially (reference ``measure``)."""
         return self.sv.measure(self.gen)
 
+    def expectation(self, pauli: str) -> float:
+        """<psi|P|psi> for a Pauli string (non-destructive)."""
+        return self.sv.expectation(pauli)
+
+    def expectation_sum(self, terms) -> float:
+        """<psi| sum_j c_j P_j |psi> for ``[(coef, pauli), ...]``
+        (non-destructive)."""
+        return self.sv.expectation_sum(terms)
+
     def state(self) -> StateVec:
         return self.sv

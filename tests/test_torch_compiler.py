@@ -232,7 +232,11 @@ def test_cli_compile_flags(tmp_path, capsys):
     assert "Counts for state vector q (64 shots):" in out
     counts = [line.strip() for line in out.splitlines() if line.strip().startswith("|")]
     assert counts and all(c.startswith(("|000>", "|111>")) for c in counts)
-    assert tcli.main([path, "--compile", "--observable", "ZZ"]) == 2
+    assert tcli.main([str(f), "--compile", "--observable", "ZZI", "--observable", "XXX"]) == 0
+    assert capsys.readouterr().out == "<ZZI> = 1.000000\n<XXX> = 1.000000\nDone.\n"
+    assert tcli.main([path, "--compile", "--observable", "ZZ"]) == 2  # 5 qubits declared
+    assert "qubism: --observable: Pauli string must be 5 chars" in capsys.readouterr().out
+    assert tcli.main([path, "--compile", "--trajectories", "4"]) == 2
     assert "not ported yet" in capsys.readouterr().err
 
 

@@ -306,14 +306,21 @@ def test_eval_file_virtual_source_and_errors():
         assert "QUBISM_TORCH_DEVICE=cpu" in out.getvalue()
 
 
-def test_main_flags(capsys):
+def test_main_flags(capsys, monkeypatch):
     path = os.path.join(EXAMPLES, "rippleCarryAdder.qasm")
     assert tcli.main([path, "--seed", "1", "--dump-state"]) == 0
     assert "CReg ans[5] = 00001" in capsys.readouterr().out
-    for argv in ([path, "--backend", "mps"], [path, "--dtype", "complex128"],
-                 [path, "--observable", "ZZ"], []):
+    for argv in ([path, "--backend", "mps"], [path, "--trajectories", "8"],
+                 [path, "--noise", "dep:0.1"], [path, "--no-such-flag"]):
         assert tcli.main(argv) == 2
         assert "not ported yet" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match="complex128 amplitudes are not supported"):
+        tcli.main([path, "--dtype", "complex128"])
+    assert tcli.main([path, "--observable", "ZZ"]) == 2  # the adder declares 10 qubits
+    assert "qubism: --observable: Pauli string must be 10 chars" in capsys.readouterr().out
+    monkeypatch.setattr(sys, "stdin", io.StringIO("qreg q[1];\n:obs Z\n:q\n"))
+    assert tcli.main([]) == 0  # no file: the REPL
+    assert capsys.readouterr().out == "QASM> QASM> <Z> = 1.000000\nQASM> "
 
 
 def test_package_imports_no_jax():

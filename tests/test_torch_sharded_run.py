@@ -121,7 +121,11 @@ def test_mesh_flag_verbose_and_inspect(tmp_path, capsys):
 def test_mesh_flag_errors(tmp_path, capsys, monkeypatch):
     f = tmp_path / "ghz.qasm"
     f.write_text("qreg q[4]; U(pi/2,0,pi) q[0]; CX q[0],q[1];")
-    assert tcli.main([str(f), "--mesh", "2", "--observable", "ZZII"]) == 2
+    assert tcli.main([str(f), "--mesh", "2", "--observable", "ZZII"]) == 0
+    assert capsys.readouterr().out == "<ZZII> = 1.000000\nDone.\n"
+    assert tcli.main([str(f), "--mesh", "2", "--observable", "ZZ"]) == 2
+    assert "qubism: --observable: Pauli string must be 4 chars" in capsys.readouterr().out
+    assert tcli.main([str(f), "--mesh", "2", "--traj-engine", "vmap"]) == 2
     assert "not ported yet" in capsys.readouterr().err
     assert tcli.main([str(f), "--mesh", "3"]) == 2
     assert "power of two" in capsys.readouterr().out
