@@ -12,9 +12,12 @@ path), on one row and on part of a tile (7 and 10 qubits); the diag kernel
 also on states of 0 to 3 qubits, where a thread owns fewer amplitudes)
 and times both at n = 28 (diag at three shapes: one 2-qubit factor, 8
 factors of 4 qubits, a 27-factor controlled-phase ladder; lane beside one
-``torch.matmul``; a lane or diag call prepares and uploads its operands, so
+``torch.matmul``, gate and layer1q beside one ``torch.einsum`` over the
+target view, diag beside one ``mul_`` by its 2^n diagonal, each library
+call first held against the plain version; a lane or diag call prepares
+and uploads its operands, so
 their lines also give the kernel on operands prepared once). Then it drives
-eight paths, each with the launch counters set to 0 just before it and read
+ten paths, each with the launch counters set to 0 just before it and read
 just after (a ``phase <path>: diag launches by (factors, widest k)`` line
 gives the shapes of its diag passes):
 
@@ -54,7 +57,18 @@ gives the shapes of its diag passes):
   dump, against the same programs with every pass applied by the plain
   versions, and ``apply_channel`` against ``apply_channel_plain``;
 * the mesh density path: n = 15 as 4 shards of 2^28 on the one card against
-  ``DensityMatrix``, and n = 12 entry by entry.
+  ``DensityMatrix``, and n = 12 entry by entry;
+* the variational trainer: the kernel adjoint engine against the plain
+  sweep at n = 20 (QAOA with chords, the HEA under an XXZ chain; energies
+  to 1e-4, gradients to 5e-4) and against float64 numpy at n = 12; QAOA
+  MaxCut on a 28-qubit ring at p = 2 (launches per call against
+  ``plan_units``, a central difference, device ms by kernel, the call split
+  into its parts with the host time of building operands, the peak at p = 1
+  and p = 2); one value and gradient at n = 30; three ``vqe_minimize`` steps;
+  the TFIM HVA at n = 24 (the head for a non-diagonal H);
+* the dynamics: a TFIM quench at n = 28 through ``evolve_observed`` against
+  the same run by the plain versions (to 1e-5; energy kept to 1e-3), and
+  imaginary time at n = 12 down to the ground energy (to 1e-3).
 
 The butterfly kernel (K6) is held against its plain version at 2^20 and
 2^30 amplitudes in 2, 4 and 16 banks and timed at 2^28 beside one
@@ -105,6 +119,26 @@ NOISE = "dep:0.01,ad:0.02,pd:0.01,dep2:0.02"
 #: device memory the expectation functions may take beside the state
 OBS_SLACK_GIB = 1.5
 MESH_DENS_PEAK_GIB = 12.0
+#: the variational path's widths: the kernel engine against the plain one,
+#: against float64 numpy, QAOA MaxCut on a ring (the JAX package's bench
+#: config, p = 2), the widest value and gradient, the TFIM HVA; and the
+#: Adam steps of vqe_minimize
+N_VAR, N_VAR_REF, N_QAOA, N_VAR_WIDE, N_HVA, VQE_STEPS = 20, 12, 28, 30, 24, 3
+#: tolerances of the engines against each other (tests/test_variational.py's)
+#: and against the float64 reference (relative to the largest |value| where
+#: that is above 1: a float32 state carries about 7 digits, so a gradient
+#: entry of 11 holds to ~1e-5 and no closer)
+VAR_E_TOL, VAR_G_TOL, VAR_REF_TOL = 1e-4, 5e-4, 1e-5
+#: device memory the adjoint engine may take beside 4 states, and the most
+#: its peak may grow from p = 1 to p = 2
+VAR_SLACK_GIB, VAR_DEPTH_GIB = 1.5, 0.25
+#: the dynamics path: a TFIM quench from |0...0> (width, time, Trotter
+#: steps), and imaginary time from |+...+> (width, tau, steps)
+N_DYN, DYN_T, DYN_STEPS = 28, 0.08, 4
+#: the quench's observables by the kernels against the plain versions,
+#: relative to max(1, |value|) (float32 states: about 7 digits of <H>)
+DYN_TOL = 1e-5
+N_ITE, ITE_TAU, ITE_STEPS = 12, 8.0, 100
 
 #: kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -131,7 +165,16 @@ PATH_KERNELS = {
     "observables": ("gate", "diag", "lane", "stage"),
     "density path": ("gate", "diag", "lane"),
     "mesh density path": ("gate", "diag"),
+    "variational": ("gate", "diag", "lane", "layer1q"),
+    "dynamics": ("diag", "lane", "layer1q"),
 }
+#: the port's kernels of the variational path, by their names in the
+#: library (device time of a profiled engine call is split by these)
+ENGINE_KERNELS = ("gate_kernel", "diag_kernel", "diag1_kernel", "diag_scalar_kernel",
+                  "lane_wgmma_kernel", "lane_small_kernel", "layer1q_kernel")
+#: the PyTorch call each kernel's ``library_ms`` times (:func:`library_call`)
+LIBRARY = {"gate": "torch.einsum", "layer1q": "torch.einsum", "diag": "mul_ by the diagonal",
+           "lane": "torch.matmul"}
 #: the butterfly kernel's bank counts, and the one whose time fills its row
 #: (the mesh path's: one card holds 30 qubits as 2 banks of 2^29)
 BFLY_SIZES, BFLY_ROW = (2, 4, 16), 2
@@ -386,23 +429,28 @@ def pauli_by_gates(state, pauli, n):
 
 
 class plain_kernels:
-    """While active, the gate, lane and diag wrappers run their plain
-    versions (for a whole run held against the kernels' run)."""
+    """While active, the gate, lane, diag and layer1q wrappers run their
+    plain versions, called by name or through ``KERNEL_FNS`` (for a whole
+    run held against the kernels' run)."""
 
-    NAMES = ("gate", "lane", "diag")
+    NAMES = ("gate", "lane", "diag", "layer1q")
 
     def __enter__(self):
         from qubism_torch.ops import kernels
 
         self.saved = {k: getattr(kernels, k) for k in self.NAMES}
+        self.saved_fns = dict(kernels.KERNEL_FNS)
         for k in self.NAMES:
-            setattr(kernels, k, kernels.KERNEL_FNS[k][1])
+            plain = kernels.KERNEL_FNS[k][1]
+            setattr(kernels, k, plain)
+            kernels.KERNEL_FNS[k] = (plain, plain)
 
     def __exit__(self, *exc):
         from qubism_torch.ops import kernels
 
         for k, f in self.saved.items():
             setattr(kernels, k, f)
+        kernels.KERNEL_FNS.update(self.saved_fns)
 
 
 class counted_plain:
@@ -490,6 +538,63 @@ def kernel_cost(name, args, n):
         S = args[0].u.shape[0]
         return 16 * amps + 8 * S * S, 8 * S * amps
     raise ValueError(name)
+
+
+def einsum_spec(n, targets, k_ops):
+    """Index letters for one ``torch.einsum`` of gates over the target view
+    of an n-qubit state: (the view's dims, the operands' subscripts, the
+    state's subscript, the result's). ``k_ops`` = the qubits of each gate
+    operand, in the order of ``targets``."""
+    from qubism_torch.ops.apply import target_view
+
+    dims, axes = target_view(n, tuple(targets))
+    letters = iter("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ")
+    state = [next(letters) for _ in dims]
+    result = list(state)
+    new = {a: next(letters) for a in axes}
+    for a in axes:
+        result[a] = new[a]
+    subs, i = [], 0
+    for k in k_ops:
+        own = axes[i:i + k]
+        subs.append("".join(new[a] for a in own) + "".join(state[a] for a in own))
+        i += k
+    return dims, subs, "".join(state), "".join(result)
+
+
+def library_call(name, args, n):
+    """``fn(state)``: one PyTorch call computing what kernel ``name``
+    computes on these operands (the yardstick of ``library_ms``), returning
+    the result, or None where no single call does (the stage kernel; the
+    lane and butterfly rows time ``torch.matmul`` where they are timed).
+    gate: one ``torch.einsum`` of U over the target view, into a new tensor;
+    layer1q: one ``torch.einsum`` of the m 2 x 2 matrices over the m-target
+    view; diag: one ``mul_`` by the 2^n diagonal, multiplied out beforehand,
+    in place as the kernel."""
+    import numpy as np
+    import torch
+
+    from qubism_torch.ops import kernels as K
+
+    if name == "gate":
+        u, targets = args
+        k = len(targets)
+        dims, (sub,), st, res = einsum_spec(n, targets, [k])
+        ut = torch.from_numpy(np.asarray(u, dtype=np.complex64).reshape((2,) * 2 * k)).to(DEV)
+        return lambda s: torch.einsum(f"{sub},{st}->{res}", ut, s.view(dims)).reshape(-1)
+    if name == "layer1q":
+        (gates,) = args
+        order = sorted(range(len(gates)), key=lambda i: gates[i][1])
+        dims, subs, st, res = einsum_spec(n, [gates[i][1] for i in order], [1] * len(gates))
+        us = [torch.from_numpy(np.asarray(gates[i][0], dtype=np.complex64)).to(DEV)
+              for i in order]
+        spec = ",".join(subs) + f",{st}->{res}"
+        return lambda s: torch.einsum(spec, *us, s.view(dims)).reshape(-1)
+    if name == "diag":
+        d = torch.ones(1 << n, dtype=torch.complex64, device=DEV)
+        K.diag_plain(d, args[0], n)
+        return lambda s: s.mul_(d)
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -590,13 +695,21 @@ def phase_kernels(report):
             buf = torch.empty_like(s).view(-1, 128)
             lms = time_ms(lambda st: torch.matmul(st.view(-1, 128), ut, out=buf), s)
             del buf
+        elif label == name and (lib := library_call(name, args, n)) is not None:
+            ref = s.clone()
+            K.KERNEL_FNS[name][1](ref, *args, n)
+            err = rel_err(lib(s.clone()), ref)
+            del ref
+            check(err <= TOL, f"{LIBRARY[name]} differs from the plain {name} by {err:.3e}")
+            lms = time_ms(lib, s)
+            del lib
         if label in (name, f"stage k={STAGE_GROUP}"):
             report[name].update(ms=kms, plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by,
                                 library_ms=lms)
         log(f"time n={n} {label}: kernel {kms:.3f} ms ({gb / kms * 1e3:.1f} GB/s), "
             f"plain {pms:.3f} ms ({gb / pms * 1e3:.1f} GB/s), bound {bound_ms:.3f} ms "
             f"({bound_by}; {bound_ms / kms:.1%} of it)"
-            + (f", torch.matmul {lms:.3f} ms" if lms is not None else "")
+            + (f", {LIBRARY[name]} {lms:.3f} ms" if lms is not None else "")
             + (f", kernel on prepared operands {prepared:.3f} ms" if prepared else ""))
     del s
     torch.cuda.empty_cache()
@@ -1578,6 +1691,354 @@ def run_mesh_density_path():
         torch.cuda.empty_cache()
 
 
+def qaoa_chords(n):
+    """A ring with four chords: across the row qubits, from a row qubit into
+    the lane block, from one into the last qubit, and inside the lane block."""
+    from qubism_torch.models.circuits import ring_edges
+
+    lane0 = n - 7
+    return ring_edges(n) + [(0, n // 2), (1, lane0 + 2), (3, n - 1), (lane0, n - 2)]
+
+
+def qaoa_ring(n, p):
+    """QAOA MaxCut on a ring as the JAX package's bench runs it: (ansatz,
+    terms, constant) of the energy to minimise, minus the cut."""
+    from qubism_torch.models import variational as V
+    from qubism_torch.models.circuits import ring_edges
+
+    edges = ring_edges(n)
+    terms, const = V.maxcut_terms(n, edges)
+    return V.qaoa_maxcut_ansatz(n, edges, p), [(-c, s) for c, s in terms], -const
+
+
+_PAULI = {"I": ((1, 0), (0, 1)), "X": ((0, 1), (1, 0)), "Y": ((0, -1j), (1j, 0)),
+          "Z": ((1, 0), (0, -1))}
+
+
+def ref_value_and_grad(ansatz, terms, constant, theta, eps=1e-5):
+    """(E, dE/dtheta) in float64 numpy, apart from the port's engines and
+    builders: a parameterized gate is exp(-i t/2 G) from the Pauli generator
+    of its name, a fixed prim its own matrix, each applied by tensordot;
+    <H> term by term; the gradient by central differences."""
+    import numpy as np
+
+    from qubism_torch.models.variational import PGate
+
+    gen = {"rx": "X", "ry": "Y", "rz": "Z", "rzz": "ZZ"}
+    n = ansatz.n
+
+    def apply(psi, u, targets):
+        k = len(targets)
+        out = np.tensordot(np.asarray(u, dtype=np.complex128).reshape((2,) * 2 * k), psi,
+                           axes=(list(range(k, 2 * k)), list(targets)))
+        return np.moveaxis(out, list(range(k)), list(targets))
+
+    def energy(th):
+        psi = np.zeros((2,) * n, dtype=np.complex128)
+        psi[(0,) * n] = 1.0
+        for op in ansatz.ops:
+            if isinstance(op, PGate):
+                g = np.ones((1, 1))
+                for c in gen[op.name]:
+                    g = np.kron(g, _PAULI[c])
+                t = op.scale * th[op.pidx[0]]
+                u = math.cos(t / 2) * np.eye(len(g)) - 1j * math.sin(t / 2) * g
+            else:
+                u = op.dense()
+            psi = apply(psi, u, op.targets)
+        e = constant
+        for c, p in terms:
+            hp = psi
+            for q, ch in enumerate(p):
+                if ch != "I":
+                    hp = apply(hp, _PAULI[ch], (q,))
+            e += c * float(np.vdot(psi, hp).real)
+        return e
+
+    th = np.asarray(theta, dtype=np.float64)
+    grad = np.zeros(len(th))
+    for j in range(len(th)):
+        d = np.zeros(len(th))
+        d[j] = eps
+        grad[j] = (energy(th + d) - energy(th - d)) / (2 * eps)
+    return energy(th), grad
+
+
+def vg_gap(a, b):
+    """(|E_a - E_b|, max |g_a - g_b|) of two (energy, gradient) pairs."""
+    import numpy as np
+
+    ga, gb = (np.asarray(x[1], dtype=np.float64) for x in (a, b))
+    return abs(float(a[0]) - float(b[0])), float(np.abs(ga - gb).max())
+
+
+def timed_call(fn, *args):
+    """(fn(*args), host seconds), synchronised."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def timed_sweep(ansatz, terms, constant, theta):
+    """The kernel engine's sweep (``adjoint_engine.kernel_adjoint_value_and_
+    grad_fn``) run part by part from the engine's own functions, the host
+    clock around each part, synchronised: (E, gradient, {part: ms}).
+    "operands" is the host time of building (and uploading) the kernel
+    operands of every unit for one call, alone: what descriptors built once
+    and refreshed per step would save."""
+    import numpy as np
+
+    from qubism_torch.models import adjoint_engine as AE
+    from qubism_torch.models import variational as V
+    from qubism_torch.ops import apply as A
+
+    n = ansatz.n
+    units = AE.plan_units(ansatz.ops, n)
+    _, checked = V._check_terms(terms, n)
+    head = AE.diag_head if all(set(p) <= set("IZ") for _, p in checked) else AE.pauli_head
+    th = V._host_theta(theta)
+    ms = dict.fromkeys(("forward", "head", "contraction", "reverse", "operands"), 0.0)
+
+    def part(name, fn):
+        out, secs = timed_call(fn)
+        ms[name] += secs * 1e3
+        return out
+
+    phi = A.zero_state(n)
+    for unit in units:
+        part("forward", lambda u=unit: AE.apply_unit(phi, u, th, n))
+    e, lam = part("head", lambda: head(phi, n, checked, float(constant)))
+    g = np.zeros(ansatz.num_params)
+    for unit in reversed(units):
+        part("contraction", lambda u=unit: AE.unit_grad(phi, lam, u, n, g))
+        part("reverse", lambda u=unit: (AE.apply_unit(phi, u, th, n, dag=True),
+                                        AE.apply_unit(lam, u, th, n, dag=True)))
+    del phi, lam
+    part("operands", lambda: [AE.unit_calls(u, th, n, DEV, dag)
+                              for u in units for dag in (False, True, True)])
+    return e, g, ms
+
+
+def run_variational_path():
+    """The variational trainer: the kernel adjoint engine against the plain
+    sweep (QAOA with chords, the HEA under an XXZ chain) and against float64
+    numpy; QAOA-28 p = 2 (launches against ``plan_units``, two warm calls, a
+    finite difference, device time by kernel, the call split into its parts,
+    the peak at p = 1 and p = 2); one value and gradient at n = 30;
+    ``vqe_minimize(grad="adjoint")`` at n = 28; the TFIM HVA (the head for a
+    non-diagonal H) against the plain sweep."""
+    import numpy as np
+    import torch
+
+    from qubism_torch.experiments import profile_circuits
+    from qubism_torch.models import adjoint_engine as AE
+    from qubism_torch.models import variational as V
+    from qubism_torch.models.hamiltonians import heisenberg_xxz, maxcut, tfim
+
+    rng = np.random.default_rng(7)
+
+    def cases(n):
+        edges = qaoa_chords(n)
+        terms, const = maxcut(n, edges)
+        return [(f"qaoa{n} p=2 ring+chords", V.qaoa_maxcut_ansatz(n, edges, 2), terms, const),
+                (f"hea{n} 2 layers, xxz", V.hea_ansatz(n, 2),
+                 heisenberg_xxz(n, jxy=0.6, jz=0.9, field=0.3)[0], 0.0)]
+
+    def random_theta(ans):
+        return rng.uniform(-math.pi, math.pi, ans.num_params).astype(np.float32)
+
+    def engines(label, ans, terms, const):
+        """The kernel engine ("auto" must pick it) against the plain sweep."""
+        theta = random_theta(ans)
+        kern = V.adjoint_value_and_grad_fn(ans, terms, const)
+        check(kern._engine == "kernels", f"{label}: engine auto picked {kern._engine}")
+        got, secs = timed_call(kern, theta)
+        want, psecs = timed_call(V.adjoint_value_and_grad_fn(ans, terms, const, engine="plain"),
+                                 theta)
+        de, dg = vg_gap(got, want)
+        log(f"variational {label}: kernels E = {float(got[0]):.6f} ({secs:.2f} s), plain sweep "
+            f"{float(want[0]):.6f} ({psecs:.2f} s): |dE| {de:.2e}, max |dg| {dg:.2e} over "
+            f"{ans.num_params} params")
+        check(de <= VAR_E_TOL and dg <= VAR_G_TOL,
+              f"{label}: kernel engine vs plain sweep |dE| {de:.2e}, |dg| {dg:.2e}")
+
+    for case in cases(N_VAR):
+        engines(*case)
+    for label, ans, terms, const in cases(N_VAR_REF):
+        theta = random_theta(ans)
+        got = V.adjoint_value_and_grad_fn(ans, terms, const, engine="kernels")(theta)
+        want = ref_value_and_grad(ans, terms, const, theta)
+        de, dg = vg_gap(got, want)
+        e_scale, g_scale = max(1.0, abs(want[0])), max(1.0, float(np.abs(want[1]).max()))
+        log(f"variational {label}: kernels against float64 numpy |dE| {de:.2e} (|E| "
+            f"{abs(want[0]):.3f}), max |dg| {dg:.2e} (max |g| {float(np.abs(want[1]).max()):.3f})")
+        check(de <= VAR_REF_TOL * e_scale and dg <= VAR_REF_TOL * g_scale,
+              f"{label}: kernel engine vs float64 |dE| {de:.2e}, |dg| {dg:.2e}")
+
+    # QAOA-28, p = 2
+    n = N_QAOA
+    state_gib = (8 << n) / 2**30
+    ans, terms, const = qaoa_ring(n, 2)
+    vg = V.adjoint_value_and_grad_fn(ans, terms, constant=const, segment_size=16)
+    check(vg._engine == "kernels", f"qaoa{n}: engine auto picked {vg._engine}")
+    theta = np.full(ans.num_params, 0.25, dtype=np.float32)
+    counts = {}
+    (first, cold) = tally(counts, lambda: timed_call(vg, theta))
+    counts = {k: v for k, v in counts.items() if v}
+    predicted = AE.predicted_launches(ans)
+    units = AE.plan_units(ans.ops, n)
+    log(f"variational qaoa{n} p=2: {len(ans.ops)} ops in {len(units)} units, launches per call "
+        f"{counts}, plan_units predicts {predicted}; first call {cold:.3f} s")
+    check(counts == predicted, f"qaoa{n}: launches {counts} != predicted {predicted}")
+    (second, _), peak = peak_gib(lambda: timed_call(vg, theta))
+    # three more warm calls; on the card, the second timed and the third
+    # under torch.profiler (device ms by kernel, idle share)
+    calls = []
+    prof = (profile_circuits.profile(f"qaoa{n}", lambda: calls.append(vg(theta)), n)
+            if DEV == "cuda" else {"wall_s": timed_call(lambda: calls.append(vg(theta)))[1]})
+    gap = max(max(vg_gap(c, first)) for c in [second, *calls])
+    check(gap <= 1e-5, f"qaoa{n}: warm calls differ from the first by {gap}")
+    e_t, g_t, parts = timed_sweep(ans, terms, const, theta)
+    gap = max(vg_gap((e_t, g_t), first))
+    check(gap <= 1e-5, f"qaoa{n}: the timed sweep differs by {gap}")
+    eps = 1e-3
+    shift = np.zeros_like(theta)
+    shift[0] = eps
+    fd = (float(vg(theta + shift)[0]) - float(vg(theta - shift)[0])) / (2 * eps)
+    g0 = float(first[1][0])
+    log(f"variational qaoa{n} p=2: E = {float(first[0]):.6f}, g = "
+        f"{np.asarray(first[1]).round(6).tolist()}, g[0] {g0:.6f} vs central difference "
+        f"(eps {eps}) {fd:.6f}; warm {prof['wall_s']:.4f} s; peak {peak:.2f} GiB "
+        f"(state {state_gib:.2f})")
+    if prof.get("kernel_ms"):
+        ours = {k: round(v["ms"], 3) for k, v in prof["kernels"].items()
+                if k.split("<")[0] in ENGINE_KERNELS}
+        log(f"variational qaoa{n} p=2 device: {prof['device_ms']:.3f} ms, kernels "
+            f"{sum(ours.values()):.3f} ms {ours}, other device work "
+            f"{prof['kernel_ms'] - sum(ours.values()):.3f} ms, idle {prof['idle_share']:.1%}")
+    elif DEV == "cuda":
+        log(f"variational qaoa{n} p=2 device: not measured (the profiler saw no device event)")
+    log(f"variational qaoa{n} p=2 parts (host ms, synchronised): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    check(abs(g0 - fd) <= 1e-2, f"qaoa{n}: g[0] {g0} vs central difference {fd}")
+    check(peak <= 4 * state_gib + VAR_SLACK_GIB,
+          f"qaoa{n}: peak {peak:.2f} GiB > 4 states + {VAR_SLACK_GIB}")
+
+    # memory constant in depth: the same at p = 1
+    ans1, terms1, const1 = qaoa_ring(n, 1)
+    vg1 = V.adjoint_value_and_grad_fn(ans1, terms1, constant=const1)
+    vg1(theta[:2])
+    (_, warm_p1), peak1 = peak_gib(lambda: timed_call(vg1, theta[:2]))
+    log(f"variational qaoa{n} p=1: warm {warm_p1:.4f} s, peak {peak1:.2f} GiB (p=2: {peak:.2f})")
+    check(abs(peak - peak1) <= VAR_DEPTH_GIB, f"qaoa{n}: peak p=1 {peak1:.2f}, p=2 {peak:.2f}")
+    del vg1
+
+    # three Adam steps at n = 28 (the first Adam of a process imports
+    # torch's compiler stack, ~2 s of host time: paid before the clock)
+    torch.optim.Adam([torch.zeros(1, requires_grad=True)])
+    (theta_opt, hist), secs = timed_call(lambda: V.vqe_minimize(
+        ans, terms, theta, steps=VQE_STEPS, constant=const, grad="adjoint"))
+    moved = float(np.abs(theta_opt.numpy() - theta).max())
+    log(f"variational vqe_minimize qaoa{n} p=2, {VQE_STEPS} Adam steps: energies "
+        f"{hist.tolist()}, theta moved {moved:.4f}; {secs / VQE_STEPS:.3f} s per step")
+    check(bool(torch.isfinite(hist).all()) and moved > 1e-3,
+          f"vqe_minimize: energies {hist.tolist()}, theta moved {moved}")
+    del vg
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+    # one value and gradient at n = 30
+    n = N_VAR_WIDE
+    ans, terms, const = qaoa_ring(n, 2)
+    vg = V.adjoint_value_and_grad_fn(ans, terms, constant=const)
+    ((e, g), secs), peak = peak_gib(lambda: timed_call(vg, theta))
+    state_gib = (8 << n) / 2**30
+    log(f"variational qaoa{n} p=2: E = {float(e):.6f}, g = {g.numpy().round(6).tolist()}, "
+        f"{secs:.3f} s (first call), peak {peak:.2f} GiB (state {state_gib:.2f})")
+    check(math.isfinite(float(e)) and bool(torch.isfinite(g).all()), f"qaoa{n}: {e}, {g}")
+    check(peak <= 4 * state_gib + VAR_SLACK_GIB,
+          f"qaoa{n}: peak {peak:.2f} GiB > 4 states + {VAR_SLACK_GIB}")
+    del vg
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+    # the head for a non-diagonal H
+    engines(f"tfim_hva{N_HVA} 2 layers, tfim", V.tfim_hva_ansatz(N_HVA, 2), tfim(N_HVA)[0], 0.0)
+
+
+def sparse_hamiltonian(terms, n):
+    """sum_j c_j P_j as a scipy sparse matrix (qubit 0 the most significant
+    index bit): P|x> = i^{#Y} (-1)^{|x & z|} |x ^ f>."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    idx = np.arange(1 << n)
+    h = sp.csr_matrix((1 << n, 1 << n), dtype=np.complex128)
+    for c, p in terms:
+        f = sum(1 << (n - 1 - q) for q, ch in enumerate(p) if ch in "XY")
+        z = sum(1 << (n - 1 - q) for q, ch in enumerate(p) if ch in "YZ")
+        parity = np.zeros_like(idx)
+        for b in range(n):
+            parity ^= ((idx & z) >> b) & 1
+        vals = c * (1j ** p.count("Y")) * (1 - 2 * parity)
+        h = h + sp.csr_matrix((vals, (idx ^ f, idx)), shape=h.shape)
+    return h
+
+
+def run_dynamics_path():
+    """Closed-system dynamics: ``evolve_observed`` of a TFIM quench at
+    N_DYN qubits against the same run by the plain versions, with the
+    energy kept by the Strang splitting; ``imaginary_time_evolve`` of the
+    TFIM at N_ITE qubits down to its ground energy from scipy."""
+    import numpy as np
+    import scipy.sparse.linalg as sla
+    import torch
+
+    from qubism_torch.core.statevec import StateVec
+    from qubism_torch.models import dynamics as Dy
+    from qubism_torch.models.hamiltonians import tfim
+
+    n = N_DYN
+    terms, _ = tfim(n)
+    z0 = "Z" + "I" * (n - 1)
+
+    def quench():
+        return Dy.evolve_observed(StateVec.zero(n), terms, [z0, terms], DYN_T, DYN_STEPS)
+
+    ((times, vals, final), secs), peak = peak_gib(lambda: timed_call(quench))
+    del final
+    with plain_kernels():
+        (_, want, final), psecs = timed_call(quench)
+    del final
+    # each observable to DYN_TOL relative to max(1, |value|): |<H>| is n - 1
+    err = np.abs(vals - want).max(axis=0)
+    scale = np.maximum(1.0, np.abs(want).max(axis=0))
+    drift = float(np.abs(vals[:, 1] - vals[0, 1]).max())
+    log(f"dynamics tfim{n} quench, t = {DYN_T} in {DYN_STEPS} Strang steps: <Z0> "
+        f"{vals[:, 0].round(7).tolist()}, energy {vals[:, 1].round(6).tolist()} (drift "
+        f"{drift:.2e}); {secs:.2f} s, peak {peak:.2f} GiB; against the plain versions "
+        f"({psecs:.2f} s) max |d<Z0>| {err[0]:.2e}, max |dE| {err[1]:.2e}")
+    check(bool(np.all(err <= DYN_TOL * scale)),
+          f"tfim{n} quench: kernels vs plain versions {err} (scale {scale})")
+    check(drift <= 1e-3, f"tfim{n} quench: energy drift {drift:.2e}")
+    check(abs(vals[0, 0] - 1) <= 1e-6 and vals[-1, 0] < 1 - 1e-3,
+          f"tfim{n} quench: <Z0> {vals[:, 0]}")
+
+    n = N_ITE
+    terms, _ = tfim(n)
+    e0 = float(sla.eigsh(sparse_hamiltonian(terms, n), k=1, which="SA")[0][0])
+    plus = StateVec(n, torch.full((1 << n,), 2.0 ** (-n / 2), dtype=torch.complex64, device=DEV))
+    (out, energies), secs = timed_call(lambda: Dy.imaginary_time_evolve(
+        plus, terms, ITE_TAU, ITE_STEPS, record_energy=True))
+    e = out.expectation_sum(terms)
+    log(f"dynamics tfim{n} imaginary time tau = {ITE_TAU} in {ITE_STEPS} steps from |+>: "
+        f"E = {e:.6f}, ground {e0:.6f} (scipy), |dE| {abs(e - e0):.2e}; {secs:.2f} s")
+    check(abs(e - e0) <= 1e-3, f"tfim{n} imaginary time: E {e} vs ground {e0}")
+    check(bool(np.all(np.diff(energies) < 1e-3)), "imaginary time: the energy rose")
+
+
 def phase_plain_compare():
     """The 30- and 28-qubit programs again, each queued run of gates applied
     by the kernels and, on a clone, by the plain versions."""
@@ -1698,7 +2159,8 @@ def main() -> int:
     paths = {"file path": run_main_path, "compiled path": run_compiled_path,
              "DSL": run_dsl_path, "bandwidth probe": lambda: run_bw_probe(report),
              "mesh path": run_mesh_path, "observables": run_observables_path,
-             "density path": run_density_path, "mesh density path": run_mesh_density_path}
+             "density path": run_density_path, "mesh density path": run_mesh_density_path,
+             "variational": run_variational_path, "dynamics": run_dynamics_path}
 
     def since(counts, before):
         return {k: v - before.get(k, 0) for k, v in counts.items() if v > before.get(k, 0)}

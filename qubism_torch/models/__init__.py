@@ -1,1 +1,53 @@
-"""Circuit families: prim streams for the compiled engine and OpenQASM text."""
+"""Circuit families for benchmarks and examples, Hamiltonians, Trotterized
+dynamics, and differentiable variational circuits (VQE / QAOA by autograd
+and by the adjoint method)."""
+
+from .variational import (  # noqa: F401
+    Ansatz,
+    PGate,
+    adjoint_value_and_grad_fn,
+    ansatz_qasm,
+    bind,
+    energy_fn,
+    hea_ansatz,
+    maxcut_terms,
+    qaoa_maxcut_ansatz,
+    sample_fn,
+    state_fn,
+    tfim_hva_ansatz,
+    value_and_grad_fn,
+    vqe_minimize,
+)
+from .dynamics import (  # noqa: F401
+    correlation_observed,
+    dissipator_kraus,
+    evolve,
+    evolve_observed,
+    imaginary_time_evolve,
+    ite_step_prims,
+    lindblad_evolve,
+    pauli_exp_prim,
+    pauli_rotation_prim,
+    spectral_function,
+    trotter_prims,
+    trotter_step_prims,
+)
+from .hamiltonians import (  # noqa: F401
+    h2_minimal,
+    heisenberg_xxz,
+    maxcut,
+    tfim,
+)
+from .circuits import (  # noqa: F401
+    adder_qasm,
+    brickwork_prims,
+    brickwork_qasm,
+    ghz_prims,
+    ghz_qasm,
+    prims_qasm,
+    qaoa_maxcut_energy,
+    qaoa_prims,
+    qft_prims,
+    qft_qasm,
+    ring_edges,
+)

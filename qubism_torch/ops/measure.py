@@ -336,3 +336,17 @@ def apply_pauli(state: torch.Tensor, pauli: str, n: int) -> torch.Tensor:
         torch.mul(src.view(1 << lr, 1 << lc), srow, out=ov[h])
         ov[h].mul_(scol).mul_(complex(phase * shi[h, 0]))
     return out
+
+
+def apply_pauli_sum(state: torch.Tensor, terms, n: int) -> torch.Tensor:
+    """(sum_j c_j P_j)|psi> as a new tensor (the counterpart of the JAX
+    package's ``apply_pauli_sum_traced``): each term's :func:`apply_pauli`
+    added into one accumulator, so one state-sized temporary is live beside
+    it."""
+    acc = None
+    for coef, pauli in terms:
+        term = apply_pauli(state, pauli, n)
+        acc = term.mul_(coef) if acc is None else acc.add_(term, alpha=coef)
+    if acc is None:
+        return torch.zeros_like(state)
+    return acc
