@@ -17,9 +17,14 @@ target view, diag beside one ``mul_`` by its 2^n diagonal, each library
 call first held against the plain version; a lane or diag call prepares
 and uploads its operands, so
 their lines also give the kernel on operands prepared once). Then it drives
-ten paths, each with the launch counters set to 0 just before it and read
+eleven paths, each with the launch counters set to 0 just before it and read
 just after (a ``phase <path>: diag launches by (factors, widest k)`` line
-gives the shapes of its diag passes):
+gives the shapes of its diag passes). The device-operand modes of K1, K4
+and K3 (``gate_dev``, ``layer1q_dev``, ``lane_dev``: the matrix read from
+device memory) are held against their plain versions and their parameter
+modes at n = 20 and 30 (K1 at k = 1..4, K4 at m = 1..6), the lane operand
+formed on the card bit for bit against the host one, and both modes timed
+at n = 28 (``time n=28 gate dev`` etc.). The paths:
 
 * the OpenQASM file path through ``qubism_torch.cli.eval_file``: the example
   goldens, GHZ-30 and brickwork-30 with 8192 shots, QFT-28 and a 28-qubit
@@ -64,11 +69,27 @@ gives the shapes of its diag passes):
   MaxCut on a 28-qubit ring at p = 2 (launches per call against
   ``plan_units``, a central difference, device ms by kernel, the call split
   into its parts with the host time of building operands, the peak at p = 1
-  and p = 2); one value and gradient at n = 30; three ``vqe_minimize`` steps;
+  and p = 2); one value and gradient at n = 30; two ``vqe_minimize`` steps;
   the TFIM HVA at n = 24 (the head for a non-diagonal H);
 * the dynamics: a TFIM quench at n = 28 through ``evolve_observed`` against
   the same run by the plain versions (to 1e-5; energy kept to 1e-3), and
-  imaginary time at n = 12 down to the ground energy (to 1e-3).
+  imaginary time at n = 12 down to the ground energy (to 1e-3);
+* noisy trajectories: the fused engine (``engine="fused"``) on GHZ-28 under
+  ``depolarizing:0.002`` and on 28 excited qubits under ``ad:0.05``, 256
+  trajectories each after a short warm-up (bench.py's closed-form pins:
+  the clean fraction against (1 - 2p/3)^55 and the clean split's chi2; the
+  per-qubit chi2 of the decay), with its launches per trajectory, its peak
+  against one state plus the batch's operands, and every batch run under
+  ``torch.cuda.set_sync_debug_mode("error")`` (no synchronising call
+  between a batch's upload and its read-back); a 26-qubit program with a
+  mid-circuit measurement, an ``if`` correction and a reset through both
+  engines (64 trajectories each; their counts by ``chi2_test``; the
+  vmapped engine's peak at 64 trajectories no higher than at one batch);
+  the vmapped engine on bench.py's GHZ-16 (512 trajectories, its two pins)
+  and its ms per trajectory at n = 26 beside the fused engine's at 26 and
+  28 (its peak again held to one batch's); ``eval_file`` in trajectory
+  mode (teleportation, ``--observable ZZI`` as mean +- stderr); and
+  ``lindblad_mcwf`` at n = 10 against ``lindblad_evolve`` within 4 stderr.
 
 The butterfly kernel (K6) is held against its plain version at 2^20 and
 2^30 amplitudes in 2, 4 and 16 banks and timed at 2^28 beside one
@@ -83,8 +104,9 @@ The last line of standard output is one JSON object,
 each with its bound (the least time of one H100 SXM for the bytes and
 float32 operations of the timed call; for the lane kernel, three TF32
 products on the tensor cores) and, where one PyTorch call computes
-the same function, that call's time. Any failed check exits non-zero
-without that line. No JAX is imported.
+the same function, that call's time; ``dev_ms`` is the device-operand
+mode's time for gate, layer1q and lane (null for the others). Any failed
+check exits non-zero without that line. No JAX is imported.
 """
 
 from __future__ import annotations
@@ -123,7 +145,7 @@ MESH_DENS_PEAK_GIB = 12.0
 #: against float64 numpy, QAOA MaxCut on a ring (the JAX package's bench
 #: config, p = 2), the widest value and gradient, the TFIM HVA; and the
 #: Adam steps of vqe_minimize
-N_VAR, N_VAR_REF, N_QAOA, N_VAR_WIDE, N_HVA, VQE_STEPS = 20, 12, 28, 30, 24, 3
+N_VAR, N_VAR_REF, N_QAOA, N_VAR_WIDE, N_HVA, VQE_STEPS = 20, 12, 28, 30, 24, 2
 #: tolerances of the engines against each other (tests/test_variational.py's)
 #: and against the float64 reference (relative to the largest |value| where
 #: that is above 1: a float32 state carries about 7 digits, so a gradient
@@ -139,6 +161,19 @@ N_DYN, DYN_T, DYN_STEPS = 28, 0.08, 4
 #: relative to max(1, |value|) (float32 states: about 7 digits of <H>)
 DYN_TOL = 1e-5
 N_ITE, ITE_TAU, ITE_STEPS = 12, 8.0, 100
+#: the trajectory path: the fused engine's width, trajectories, depolarizing
+#: and amplitude-damping rates (bench.py's cases at 28 qubits); the
+#: feed-forward program's width and trajectories through each engine; the
+#: vmapped engine's GHZ (bench.py's 16 qubits, 512 trajectories) and its
+#: timed width and trajectories; lindblad_mcwf's width and trajectories
+N_TRAJ, TRAJ_T, TRAJ_P, TRAJ_AD = 28, 256, 0.002, 0.05
+N_TRAJ_FF, TRAJ_FF_T = 26, 64
+N_TRAJ_VMAP, TRAJ_VMAP_T, N_TRAJ_VMAP_WIDE, TRAJ_VMAP_WIDE_T = 16, 512, 26, 8
+N_LINDBLAD, LINDBLAD_T = 10, 256
+#: device memory the fused engine may take beside one state and its batch's
+#: operands (the lane operand, the sample's row masses, small tables); and
+#: the most the vmapped engine's peak may grow from one batch to many
+TRAJ_SLACK_GIB = 0.25
 
 #: kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -167,6 +202,7 @@ PATH_KERNELS = {
     "mesh density path": ("gate", "diag"),
     "variational": ("gate", "diag", "lane", "layer1q"),
     "dynamics": ("diag", "lane", "layer1q"),
+    "trajectories": ("gate", "lane", "layer1q"),
 }
 #: the port's kernels of the variational path, by their names in the
 #: library (device time of a profiled engine call is split by these)
@@ -1824,7 +1860,7 @@ def timed_sweep(ansatz, terms, constant, theta):
 def run_variational_path():
     """The variational trainer: the kernel adjoint engine against the plain
     sweep (QAOA with chords, the HEA under an XXZ chain) and against float64
-    numpy; QAOA-28 p = 2 (launches against ``plan_units``, two warm calls, a
+    numpy; QAOA-28 p = 2 (launches against ``plan_units``, three warm calls, a
     finite difference, device time by kernel, the call split into its parts,
     the peak at p = 1 and p = 2); one value and gradient at n = 30;
     ``vqe_minimize(grad="adjoint")`` at n = 28; the TFIM HVA (the head for a
@@ -1869,11 +1905,12 @@ def run_variational_path():
     for label, ans, terms, const in cases(N_VAR_REF):
         theta = random_theta(ans)
         got = V.adjoint_value_and_grad_fn(ans, terms, const, engine="kernels")(theta)
-        want = ref_value_and_grad(ans, terms, const, theta)
+        want, secs = timed_call(lambda: ref_value_and_grad(ans, terms, const, theta))
         de, dg = vg_gap(got, want)
         e_scale, g_scale = max(1.0, abs(want[0])), max(1.0, float(np.abs(want[1]).max()))
         log(f"variational {label}: kernels against float64 numpy |dE| {de:.2e} (|E| "
-            f"{abs(want[0]):.3f}), max |dg| {dg:.2e} (max |g| {float(np.abs(want[1]).max()):.3f})")
+            f"{abs(want[0]):.3f}), max |dg| {dg:.2e} (max |g| {float(np.abs(want[1]).max()):.3f}; "
+            f"the reference {secs:.2f} s)")
         check(de <= VAR_REF_TOL * e_scale and dg <= VAR_REF_TOL * g_scale,
               f"{label}: kernel engine vs float64 |dE| {de:.2e}, |dg| {dg:.2e}")
 
@@ -1892,13 +1929,13 @@ def run_variational_path():
     log(f"variational qaoa{n} p=2: {len(ans.ops)} ops in {len(units)} units, launches per call "
         f"{counts}, plan_units predicts {predicted}; first call {cold:.3f} s")
     check(counts == predicted, f"qaoa{n}: launches {counts} != predicted {predicted}")
-    (second, _), peak = peak_gib(lambda: timed_call(vg, theta))
-    # three more warm calls; on the card, the second timed and the third
-    # under torch.profiler (device ms by kernel, idle share)
+    # three warm calls (on the card a warm-up, one timed and one under
+    # torch.profiler: device ms by kernel, idle share), and their peak
     calls = []
-    prof = (profile_circuits.profile(f"qaoa{n}", lambda: calls.append(vg(theta)), n)
-            if DEV == "cuda" else {"wall_s": timed_call(lambda: calls.append(vg(theta)))[1]})
-    gap = max(max(vg_gap(c, first)) for c in [second, *calls])
+    (prof, prof_secs), peak = peak_gib(lambda: timed_call(lambda: (
+        profile_circuits.profile(f"qaoa{n}", lambda: calls.append(vg(theta)), n)
+        if DEV == "cuda" else {"wall_s": timed_call(lambda: calls.append(vg(theta)))[1]})))
+    gap = max(max(vg_gap(c, first)) for c in calls)
     check(gap <= 1e-5, f"qaoa{n}: warm calls differ from the first by {gap}")
     e_t, g_t, parts = timed_sweep(ans, terms, const, theta)
     gap = max(vg_gap((e_t, g_t), first))
@@ -1917,7 +1954,8 @@ def run_variational_path():
                 if k.split("<")[0] in ENGINE_KERNELS}
         log(f"variational qaoa{n} p=2 device: {prof['device_ms']:.3f} ms, kernels "
             f"{sum(ours.values()):.3f} ms {ours}, other device work "
-            f"{prof['kernel_ms'] - sum(ours.values()):.3f} ms, idle {prof['idle_share']:.1%}")
+            f"{prof['kernel_ms'] - sum(ours.values()):.3f} ms, idle {prof['idle_share']:.1%} "
+            f"(the three calls, the profiled one included, {prof_secs:.2f} s)")
     elif DEV == "cuda":
         log(f"variational qaoa{n} p=2 device: not measured (the profiler saw no device event)")
     log(f"variational qaoa{n} p=2 parts (host ms, synchronised): "
@@ -1929,13 +1967,13 @@ def run_variational_path():
     # memory constant in depth: the same at p = 1
     ans1, terms1, const1 = qaoa_ring(n, 1)
     vg1 = V.adjoint_value_and_grad_fn(ans1, terms1, constant=const1)
-    vg1(theta[:2])
-    (_, warm_p1), peak1 = peak_gib(lambda: timed_call(vg1, theta[:2]))
-    log(f"variational qaoa{n} p=1: warm {warm_p1:.4f} s, peak {peak1:.2f} GiB (p=2: {peak:.2f})")
+    (_, secs_p1), peak1 = peak_gib(lambda: timed_call(vg1, theta[:2]))
+    log(f"variational qaoa{n} p=1: first call {secs_p1:.4f} s, peak {peak1:.2f} GiB "
+        f"(p=2: {peak:.2f})")
     check(abs(peak - peak1) <= VAR_DEPTH_GIB, f"qaoa{n}: peak p=1 {peak1:.2f}, p=2 {peak:.2f}")
     del vg1
 
-    # three Adam steps at n = 28 (the first Adam of a process imports
+    # two Adam steps at n = 28 (the first Adam of a process imports
     # torch's compiler stack, ~2 s of host time: paid before the clock)
     torch.optim.Adam([torch.zeros(1, requires_grad=True)])
     (theta_opt, hist), secs = timed_call(lambda: V.vqe_minimize(
@@ -2037,6 +2075,312 @@ def run_dynamics_path():
         f"E = {e:.6f}, ground {e0:.6f} (scipy), |dE| {abs(e - e0):.2e}; {secs:.2f} s")
     check(abs(e - e0) <= 1e-3, f"tfim{n} imaginary time: E {e} vs ground {e0}")
     check(bool(np.all(np.diff(energies) < 1e-3)), "imaginary time: the energy rose")
+
+
+def phase_device_operands(report):
+    """The device-operand modes (K1 ``gate_dev``, K4 ``layer1q_dev``, K3
+    ``lane_dev``): each against its plain version and against its parameter
+    mode at N_CHECK and N_WIDE (K1 at k = 1..4, K4 at m = 1..6), the
+    device-side lane operand bit for bit against the host one, then both
+    modes timed at N_TIME."""
+    import numpy as np
+    import torch
+
+    from qubism_torch.ops import kernels as K
+
+    rng = np.random.default_rng(808)
+
+    def hold(name, run, n, seed, label):
+        s = rand_state(n, seed)
+        plain, param, dev = s.clone(), s.clone(), s
+        run("plain", plain)
+        run("param", param)
+        run("dev", dev)
+        sync()
+        err, perr = rel_err(dev, plain), rel_err(dev, param)
+        abs_err = float((dev - plain).abs().max())
+        del plain, param
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], abs_err)
+        log(f"kernel {name} dev n={n} {label}: rel_l2 {err:.3e} against the plain version, "
+            f"{perr:.3e} against the parameter mode, max_abs {abs_err:.3e}")
+        tol = TOL_TIGHT if name in TIGHT else TOL
+        check(err <= tol and perr <= tol,
+              f"{name} device-operand mode at n={n} {label}: rel L2 {err:.3e} / {perr:.3e} > {tol}")
+
+    for n in (N_CHECK, N_WIDE):
+        for k in (1, 2, 3, 4):
+            tg = tuple(sorted(rng.choice(n, k, replace=False).tolist()))
+            u = unitary(k, rng)
+            ut = torch.from_numpy(np.ascontiguousarray(u, dtype=np.complex64)).to(DEV)
+            hold("gate", lambda mode, st, u=u, ut=ut, tg=tg: {
+                "plain": lambda: K.gate_plain(st, ut, tg, n), "param": lambda: K.gate(st, u, tg, n),
+                "dev": lambda: K.gate_dev(st, ut, tg, n)}[mode](), n, 7 * n + k, f"k={k} {tg}")
+        for m in range(1, 7):
+            qs = rng.choice(n, m, replace=False).tolist()
+            us = np.stack([unitary(1, rng) for _ in range(m)]).astype(np.complex64)
+            ut = torch.from_numpy(us).to(DEV)
+            hold("layer1q", lambda mode, st, us=us, ut=ut, qs=qs: {
+                "plain": lambda: K.layer1q_plain(st, tuple(zip(ut, qs)), n),
+                "param": lambda: K.layer1q(st, tuple(zip(us, qs)), n),
+                "dev": lambda: K.layer1q_dev(st, ut, qs, n)}[mode](), n, 9 * n + m, f"m={m} {qs}")
+        u = unitary(7, rng)
+        ut = torch.from_numpy(np.ascontiguousarray(u, dtype=np.complex64)).to(DEV)
+        hold("lane", lambda mode, st: {
+            "plain": lambda: K.lane_plain(st, ut, n), "param": lambda: K.lane(st, u, n),
+            "dev": lambda: K.lane_dev(st, ut, n)}[mode](), n, 11 * n, "128 x 128")
+    u = unitary(7, rng).astype(np.complex64)
+    u.real[0, :6] = [0.0, -0.0, 1e-40, -3.4e38, 1 + 2 ** -12, -(1 + 2 ** -13)]
+    host = K.lane_parts(u)
+    dev = K.lane_parts_dev(torch.from_numpy(u).to(DEV)).cpu().numpy()
+    same = bool(np.array_equal(host.view(np.uint32), dev.view(np.uint32)))
+    log(f"kernel lane dev: lane_parts_dev bit-equal to the host lane_parts: {same}")
+    check(same, "lane_parts_dev differs from lane_parts")
+
+    if DEV != "cuda":
+        return
+    n = N_TIME
+    gb = 16 * (1 << n) / 1e9
+    s = rand_state(n, 77)
+    u4 = unitary(4, rng)
+    u4t = torch.from_numpy(np.ascontiguousarray(u4, dtype=np.complex64)).to(DEV)
+    us6 = np.stack([unitary(1, rng) for _ in range(6)]).astype(np.complex64)
+    us6t = torch.from_numpy(us6).to(DEV)
+    q6 = (0, 4, 8, 12, 16, 20)
+    u7 = unitary(7, rng)
+    u7t = torch.from_numpy(np.ascontiguousarray(u7, dtype=np.complex64)).to(DEV)
+    timed = [
+        ("gate", lambda st: K.gate(st, u4, (2, 9, 15, 20), n),
+         lambda st: K.gate_dev(st, u4t, (2, 9, 15, 20), n), (u4, (2, 9, 15, 20))),
+        ("layer1q", lambda st: K.layer1q(st, tuple(zip(us6, q6)), n),
+         lambda st: K.layer1q_dev(st, us6t, q6, n), (tuple(zip(us6, q6)),)),
+        ("lane", lambda st: K.lane(st, u7, n), lambda st: K.lane_dev(st, u7t, n), (u7,)),
+    ]
+    from qubism_torch.ops import probes as P
+
+    for name, param, dev, args in timed:
+        # alternate parameter mode, device mode, device mode, parameter mode
+        p1, d1, d2, p2 = (time_ms(f, s) for f in (param, dev, dev, param))
+        dms, pms = (d1 + d2) / 2, (p1 + p2) / 2
+        report[name]["dev_ms"] = dms
+        bound_ms, bound_by = P.bound(*kernel_cost(name, args, n), tf32x3=name == "lane")
+        log(f"time n={n} {name} dev: device operand {dms:.3f} ms ({gb / dms * 1e3:.1f} GB/s), "
+            f"parameter mode {pms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+            f"{bound_ms / dms:.1%} of it)"
+            + (" (lane dev forms its TF32 parts on the card each call)" if name == "lane" else ""))
+    del s
+    torch.cuda.empty_cache()
+
+
+def ghz_lines(n):
+    return ([f"qreg q[{n}]; creg c[{n}];", "U(1.5707963267948966, 0, 3.141592653589793) q[0];"]
+            + [f"CX q[{q}], q[{q + 1}];" for q in range(n - 1)])
+
+
+def traj_program(lines, noise):
+    from qubism_torch.qasm.parser import parse_openqasm
+    from qubism_torch.run.noisy import TrajectoryProgram
+
+    return TrajectoryProgram(parse_openqasm("<chip_smoke>.qasm", "\n".join(lines)), noise=noise)
+
+
+def fused_run(label, prog, ntraj, seed):
+    """A warm-up of the fused engine on a few trajectories, then ``ntraj``
+    timed, with the launches it makes and its peak: (bits by creg, seconds,
+    launches per trajectory, peak GiB)."""
+    from qubism_torch.run.traj_fused import FusedTrajectories
+
+    plan = prog._fused_plan = FusedTrajectories(prog)
+    prog.run_vals(4, seed=seed + 1000, engine="fused")
+    counts = {}
+    (vals, secs), peak = peak_gib(lambda: tally(counts, lambda: timed_call(
+        lambda: prog.run_vals(ntraj, seed=seed, engine="fused"))))
+    per = {k: v / ntraj for k, v in counts.items() if v}
+    kinds = {}
+    for st in plan.steps:
+        kinds[type(st).__name__] = kinds.get(type(st).__name__, 0) + 1
+    log(f"trajectories {label}: fused, {ntraj} trajectories warm {secs:.3f} s "
+        f"({secs / ntraj * 1e3:.2f} ms each), {plan.dispatch_count - 1} batches, "
+        f"launches per trajectory {per}, steps {kinds}, sites {plan.total_sites}, peak "
+        f"{peak:.2f} GiB; no synchronising call inside a batch"
+        + (" (sync debug mode 'error')" if DEV == "cuda" else ""))
+    return vals, secs, per, peak
+
+
+def vmapped_run(label, prog, ntraj, seed):
+    """The vmapped engine on one batch (a warm-up), then ``ntraj`` timed:
+    (bits by creg, seconds, peak GiB). The peak of the many batches may not
+    exceed the one batch's by more than TRAJ_SLACK_GIB: a batch's final
+    states leave the card before the next batch runs."""
+    batch = min(ntraj, max(1, prog._MAX_LIVE // prog._traj_live_cost()))
+    _, peak1 = peak_gib(lambda: prog.run_vals(batch, seed=seed + 1000))
+    (vals, secs), peak = peak_gib(lambda: timed_call(lambda: prog.run_vals(ntraj, seed=seed)))
+    log(f"trajectories {label}: vmapped, {ntraj} trajectories in batches of {batch} "
+        f"{secs:.3f} s, peak {peak:.2f} GiB (one batch: {peak1:.2f} GiB; a batch's states "
+        f"{batch * (8 << prog.n) / 2**30:.2f} GiB)")
+    check(peak <= peak1 + TRAJ_SLACK_GIB,
+          f"{label} vmapped: peak {peak:.2f} GiB at {ntraj} trajectories > one batch's "
+          f"{peak1:.2f} + {TRAJ_SLACK_GIB}")
+    return vals, secs, peak
+
+
+def ghz_pins(label, bits, p, sites, ntraj):
+    """bench.py's pins of a noisy GHZ: the clean fraction within 3 sigma +
+    0.002 of (1 - 2p/3)^sites, and the clean split's chi2 < 16."""
+    cleanmask = (bits == bits[:, :1]).all(axis=1)
+    clean = float(cleanmask.mean())
+    p_clean = (1 - 2 * p / 3) ** sites
+    sig = (p_clean * (1 - p_clean) / ntraj) ** 0.5
+    n0 = int((cleanmask & (bits[:, 0] == 0)).sum())
+    n1 = int(cleanmask.sum()) - n0
+    chi2 = (n0 - n1) ** 2 / max(n0 + n1, 1)
+    log(f"trajectories {label}: clean fraction {clean:.4f} against (1 - 2p/3)^{sites} = "
+        f"{p_clean:.4f} (3 sigma {3 * sig:.4f}), clean split {n0}/{n1} chi2 {chi2:.2f}")
+    check(abs(clean - p_clean) < 3 * sig + 0.002,
+          f"{label}: clean fraction {clean} vs {p_clean}")
+    check(chi2 < 16.0, f"{label}: clean split chi2 {chi2}")
+
+
+def run_trajectories_path():
+    """Noisy trajectories: the fused engine on GHZ-28 under depolarizing
+    noise and on 28 excited qubits under amplitude damping (closed-form
+    pins, launches per trajectory, no synchronising call inside a batch,
+    peak), a feed-forward program at N_TRAJ_FF through both engines, the
+    vmapped engine on bench.py's GHZ-16 and timed at N_TRAJ_VMAP_WIDE, the
+    CLI's trajectory mode and ``lindblad_mcwf`` against ``lindblad_evolve``."""
+    import numpy as np
+
+    from qubism_torch.cli import eval_file
+    from qubism_torch.core.density import DensityMatrix
+    from qubism_torch.core.gates import Prim
+    from qubism_torch.models import dynamics as Dy
+    from qubism_torch.run.traj_fused import FusedTrajectories
+    from qubism_torch.utils.stats import chi2_quantile, chi2_test
+
+    FusedTrajectories.sync_debug = "error" if DEV == "cuda" else None
+    try:
+        n, T, p = N_TRAJ, TRAJ_T, TRAJ_P
+        state_gib = (8 << n) / 2**30
+        prog = traj_program(ghz_lines(n) + ["measure q -> c;"], f"depolarizing:{p}")
+        vals, secs, per, peak = fused_run(f"ghz{n} depolarizing:{p}", prog, T, 1)
+        ghz_pins(f"ghz{n} fused", vals["c"], p, 2 * n - 1, T)
+        ops_gib = T * sum(np.asarray(o).nbytes for ops in prog._fused_plan._realize_operands(
+            np.random.default_rng(0)) for o in ops) / 2**30
+        log(f"trajectories ghz{n}: peak {peak:.3f} GiB against one state {state_gib:.3f} + the "
+            f"batch's operands {ops_gib:.4f} GiB")
+        check(peak <= state_gib + ops_gib + TRAJ_SLACK_GIB,
+              f"ghz{n} fused: peak {peak:.2f} GiB > one state {state_gib:.2f} + operands "
+              f"{ops_gib:.4f} + {TRAJ_SLACK_GIB}")
+        TRAJ_TIMES[f"fused ghz{n}"] = secs / T
+
+        lines = [f"qreg q[{n}]; creg c[{n}];"]
+        lines += [f"U(3.141592653589793, 0, 3.141592653589793) q[{q}];" for q in range(n)]
+        prog = traj_program(lines + ["measure q -> c;"], f"ad:{TRAJ_AD}")
+        vals, secs, _, peak = fused_run(f"x{n} ad:{TRAJ_AD}", prog, T, 2)
+        p1 = vals["c"].mean(axis=0)
+        want = 1.0 - TRAJ_AD
+        z2 = float(((p1 - want) ** 2 / (want * (1 - want) / T)).sum())
+        bound = chi2_quantile(n, 1e-4)
+        log(f"trajectories x{n} ad:{TRAJ_AD}: P(1) per qubit {p1.min():.4f}..{p1.max():.4f} "
+            f"against {want}, chi2 {z2:.2f} < {bound:.2f}")
+        check(z2 < bound, f"x{n} ad: per-qubit chi2 {z2} >= {bound}")
+        check(peak <= state_gib + TRAJ_SLACK_GIB + 0.01, f"x{n} ad: peak {peak:.2f} GiB")
+
+        # feed-forward: a mid-circuit measurement, a reset and a correction
+        n = N_TRAJ_FF
+        lines = ghz_lines(n)
+        lines[0] = f"qreg q[{n}]; creg m[1]; creg c[{n}];"
+        # measuring q[0] collapses the GHZ state; the correction returns
+        # q[0] to |0> and the reset keeps it there: c = 0...0 or 01...1
+        lines += ["measure q[0] -> m[0];",
+                  "if (m == 1) U(3.141592653589793, 0, 3.141592653589793) q[0];",
+                  "reset q[0];", "measure q -> c;"]
+        # damping on the measured, corrected and reset qubit: its MCWF sites
+        # meet the mid-circuit measurement (the x28 run damps every qubit)
+        prog = traj_program(lines, f"depolarizing:{p},ad:{p}@q[0]")
+
+        def classes(vals):
+            out = {}
+            for m, c in zip(vals["m"][:, 0], vals["c"]):
+                key = f"m={m} c=" + ("0" if not c.any() else "01" if c[1:].all() and not c[0]
+                                     else "other")
+                out[key] = out.get(key, 0) + 1
+            return out
+
+        fused, fsecs, _, _ = fused_run(f"feed-forward{n}", prog, TRAJ_FF_T, 3)
+        vmap, vsecs, vpeak = vmapped_run(f"feed-forward{n}", prog, TRAJ_FF_T, 4)
+        cf, cv = classes(fused), classes(vmap)
+        keys = sorted(set(cf) | set(cv))
+        a = np.array([cf.get(k, 0) for k in keys], dtype=float)
+        b = np.array([cv.get(k, 0) for k in keys], dtype=float)
+        res = chi2_test(a, (a + b) / (a.sum() + b.sum()))
+        log(f"trajectories feed-forward{n}: fused {cf} ({fsecs:.2f} s), vmapped {cv} "
+            f"({vsecs:.2f} s); chi2 {res}")
+        check(bool(res), f"feed-forward{n}: fused and vmapped counts differ: {res}")
+        clean = (cf.get("m=0 c=0", 0) + cf.get("m=1 c=01", 0)) / TRAJ_FF_T
+        check(clean >= 0.8, f"feed-forward{n}: the fused engine's clean share {clean}")
+
+        # the vmapped engine: bench.py's GHZ-16, then ms per trajectory wide
+        n, T = N_TRAJ_VMAP, TRAJ_VMAP_T
+        prog = traj_program(ghz_lines(n) + ["measure q -> c;"], f"depolarizing:{p}")
+        prog.run_vals(T, seed=0)
+        (vals, secs), peak = peak_gib(lambda: timed_call(lambda: prog.run_vals(T, seed=1)))
+        log(f"trajectories ghz{n}: vmapped, {T} trajectories warm {secs:.3f} s, peak "
+            f"{peak:.2f} GiB")
+        ghz_pins(f"ghz{n} vmapped", vals["c"], p, 2 * n - 1, T)
+
+        n, T = N_TRAJ_VMAP_WIDE, TRAJ_VMAP_WIDE_T
+        prog = traj_program(ghz_lines(n) + ["measure q -> c;"], f"depolarizing:{p}")
+        vals, secs, peak = vmapped_run(f"ghz{n}", prog, T, 1)
+        TRAJ_TIMES[f"vmapped ghz{n}"] = secs / T
+        check(vals["c"].shape == (T, n), f"ghz{n} vmapped: bits {vals['c'].shape}")
+        _, fsecs, _, _ = fused_run(f"ghz{n} depolarizing:{p}", prog, 32, 5)
+        TRAJ_TIMES[f"fused ghz{n}"] = fsecs / 32
+        log(f"trajectories ms per trajectory: vmapped ghz{n} "
+            f"{TRAJ_TIMES[f'vmapped ghz{n}'] * 1e3:.1f} (batches of "
+            f"{max(1, prog._MAX_LIVE // prog._traj_live_cost())}, peak {peak:.2f} GiB), fused "
+            f"ghz{n} {TRAJ_TIMES[f'fused ghz{n}'] * 1e3:.2f}, fused ghz{N_TRAJ} "
+            f"{TRAJ_TIMES[f'fused ghz{N_TRAJ}'] * 1e3:.2f}")
+
+        # the CLI's trajectory mode
+        buf = io.StringIO()
+        (rc, secs) = timed_call(lambda: eval_file(
+            os.path.join(EXAMPLES, "teleportation.qasm"), seed=1, noise="dep:0.01",
+            trajectories=256, observables=["ZZI"], out=buf))
+        text = buf.getvalue()
+        rows = [ln for ln in text.splitlines() if ln.startswith("  ")]
+        total = sum(int(ln.rpartition(": ")[2]) for ln in rows)
+        obs = [ln for ln in text.splitlines() if ln.startswith("<ZZI> = ")]
+        log(f"trajectories cli teleportation dep:0.01, 256 trajectories ({secs:.2f} s): "
+            f"{len(rows)} outcomes, {obs}")
+        check(rc == 0 and text.startswith("Counts over classical registers (256 trajectories):")
+              and total == 256 and len(obs) == 1 and " +- " in obs[0]
+              and text.rstrip().endswith("Done."), f"cli trajectories rc={rc}\n{text[-2000:]}")
+
+        # Lindblad by trajectories against the exact density matrix
+        n = N_LINDBLAD
+        sm = np.array([[0, 1], [0, 0]], dtype=complex)
+        had = np.array([[1, 1], [1, -1]], dtype=complex) / np.sqrt(2)
+        h_terms = [(0.5, "Z" + "I" * (n - 1))]
+        collapse = [(0.3, sm, 0)]
+        paulis = ["X" + "I" * (n - 1), "Z" + "I" * (n - 1)]
+        rho = DensityMatrix(n).apply([Prim(had, (0,))])
+        Dy.lindblad_evolve(rho, h_terms, collapse, 0.5, steps=5)
+        (_, est), secs = timed_call(lambda: Dy.lindblad_mcwf(
+            n, [Prim(had, (0,))], h_terms, collapse, 0.5, steps=5, ntraj=LINDBLAD_T,
+            observables=paulis, seed=1))
+        parts = []
+        for pauli, (mean, se) in zip(paulis, est):
+            want = rho.expectation(pauli)
+            parts.append(f"<{pauli[0]}0> {mean:.4f} +- {se:.4f} against {want:.4f}")
+            check(abs(mean - want) <= 4 * se + 1e-3, f"lindblad_mcwf {pauli}: {mean} vs {want}")
+        log(f"trajectories lindblad_mcwf n={n}, {LINDBLAD_T} trajectories ({secs:.2f} s): "
+            + "; ".join(parts))
+    finally:
+        FusedTrajectories.sync_debug = None
+
+
+#: seconds per trajectory of the timed runs, by engine and program
+TRAJ_TIMES = {}
 
 
 def phase_plain_compare():
@@ -2146,11 +2490,12 @@ def main() -> int:
 
     report = {name: {"name": name, "route": "cuda", "source": src, "replaces": tpu,
                      "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
-                     "bound_ms": None, "bound_by": None, "library_ms": None}
+                     "bound_ms": None, "bound_by": None, "library_ms": None, "dev_ms": None}
               for name, (src, tpu) in KERNELS.items()}
 
     t0 = time.perf_counter()
     phase_kernels(report)
+    phase_device_operands(report)
     phase_butterfly(report)
     phase_probe_kernels(report)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
@@ -2160,7 +2505,8 @@ def main() -> int:
              "DSL": run_dsl_path, "bandwidth probe": lambda: run_bw_probe(report),
              "mesh path": run_mesh_path, "observables": run_observables_path,
              "density path": run_density_path, "mesh density path": run_mesh_density_path,
-             "variational": run_variational_path, "dynamics": run_dynamics_path}
+             "variational": run_variational_path, "dynamics": run_dynamics_path,
+             "trajectories": run_trajectories_path}
 
     def since(counts, before):
         return {k: v - before.get(k, 0) for k, v in counts.items() if v > before.get(k, 0)}

@@ -9,8 +9,9 @@ Two surfaces, as in the JAX package (``import qubism_torch as qt``):
    g.prims)`` (ops/fusion.py) runs a gate's prims fused;
    :class:`DensityMatrix` and the Kraus channels for mixed states;
 2. the **QASM path**: ``python -m qubism_torch file.qasm`` (with
-   ``--compile`` for the compiled engine, ``--backend density --noise`` for
-   the exact density engine), and the REPL with no file.
+   ``--compile`` for the compiled engine, ``--noise`` for noisy
+   trajectories (:class:`TrajectoryProgram`), ``--backend density --noise``
+   for the exact density engine), and the REPL with no file.
 
 Both run on one NVIDIA Hopper GPU through hand-written CUDA kernels for the
 state-vector passes (ops/kernels.py, csrc/). Importing the package imports
@@ -51,5 +52,10 @@ from .core.gates import (  # noqa: F401
 )
 from .core.statevec import StateVec, mk_qubit, mk_state_vec  # noqa: F401
 from .session import Session  # noqa: F401
+from .run.noisy import (  # noqa: F401
+    DensityProgram,
+    TrajectoryProgram,
+    parse_noise_spec,
+)
 
 __version__ = "0.1.0"

@@ -9,14 +9,15 @@ Main.hs:39-57). ``:q`` quits, ``:obs PAULI`` prints an expectation,
 ``include``.
 
 Flags: ``--seed``, ``--shots``, ``--dump-state``, ``--dtype``, ``--compile``,
-``--fuse-width``, ``--mesh``, ``--observable`` (repeatable), ``--backend
-density`` with ``--noise`` (the exact density engine, on one device or over
-``--mesh D``), ``--reference-compat``, ``-I``, ``--include-base`` and
-``--verbose``. The flags of the JAX package's CLI whose engines are not
-ported yet are parsed and exit with code 2 and "not ported yet": ``--backend
-stabilizer|mps``, ``--noise`` without ``--backend density``,
-``--trajectories``, ``--traj-engine``, ``--chi``, ``--trunc-budget`` and
-``--max-chi``.
+``--fuse-width``, ``--mesh``, ``--observable`` (repeatable), ``--noise`` with
+``--trajectories`` and ``--traj-engine vmap|fused|auto`` (noisy trajectories:
+counts over the classical registers, ``--observable`` as mean +- stderr,
+``--mesh D`` splitting the batch), ``--backend density`` with ``--noise``
+(the exact density engine, on one device or over ``--mesh D``),
+``--reference-compat``, ``-I``, ``--include-base`` and ``--verbose``. The
+flags of the JAX package's CLI whose engines are not ported yet are parsed
+and exit with code 2 and "not ported yet": ``--backend stabilizer|mps``,
+``--chi``, ``--trunc-budget`` and ``--max-chi``.
 """
 
 from __future__ import annotations
@@ -40,8 +41,6 @@ from .run.progstate import ProgState, QasmRuntimeError, blank_state
 #: flags of the JAX package's CLI whose engines are not ported yet: parsed,
 #: then refused by :func:`_unported`
 _UNPORTED_FLAGS = {
-    "--trajectories": dict(type=int, metavar="T"),
-    "--traj-engine": dict(choices=["vmap", "fused", "auto"]),
     "--chi": dict(type=int, metavar="X"),
     "--trunc-budget": dict(type=float, metavar="W"),
     "--max-chi": dict(type=int, metavar="X"),
@@ -55,8 +54,6 @@ def _unported(args) -> str | None:
     for flag in _UNPORTED_FLAGS:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             return flag
-    if args.noise is not None and args.backend != "density":
-        return "--noise without --backend density"
     return None
 
 
@@ -79,17 +76,32 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    choices=["statevector", "stabilizer", "mps", "density"],
                    default="statevector",
                    help="simulation engine: the dense state-vector engine "
-                        "(default) or the exact density-matrix engine "
+                        "(default; with --noise it runs noisy trajectories) "
+                        "or the exact density-matrix engine "
                         "(open-system: combine with --noise; 4^n amplitudes, "
                         "n <= 14 on one device, shard past that with "
                         "--mesh). stabilizer and mps are not ported yet")
     p.add_argument("--noise", metavar="SPEC", default=None,
-                   help="circuit-level noise model for --backend density, "
-                        "e.g. 'depolarizing:0.01' or 'ad:0.05,pd:0.02' "
-                        "(channels: depolarizing, amplitude-damping/ad, "
-                        "phase-damping/pd, bitflip/bf, phaseflip/pf, dep2: "
-                        "2q depolarizing after every 2-qubit gate); gate "
-                        "channels apply to every qubit a gate touches")
+                   help="circuit-level noise model, e.g. 'depolarizing:0.01' "
+                        "or 'ad:0.05,pd:0.02' (channels: depolarizing, "
+                        "amplitude-damping/ad, phase-damping/pd, bitflip/bf, "
+                        "phaseflip/pf, dep2: 2q depolarizing after every "
+                        "2-qubit gate, readout/ro: a reporting flip at "
+                        "measurement); gate channels apply to every qubit a "
+                        "gate touches. Runs the program as noisy trajectories, "
+                        "or exactly with --backend density")
+    p.add_argument("--trajectories", type=int, default=None, metavar="T",
+                   help="run the program as T independent trajectories "
+                        "(default: --shots, else 512), each with its own "
+                        "mid-circuit outcomes")
+    p.add_argument("--traj-engine", choices=["vmap", "fused", "auto"], default="vmap",
+                   help="trajectory executor: 'vmap' (default; the whole batch "
+                        "by batched torch ops, the same outcomes with --mesh "
+                        "at a seed), 'fused' (each trajectory through the "
+                        "CUDA kernels with realized operands: mixture noise, "
+                        "MCWF damping, mid-circuit measurement and "
+                        "feed-forward; errors on ineligible programs), 'auto' "
+                        "(fused when eligible)")
     p.add_argument("--observable", action="append", default=[],
                    metavar="PAULI",
                    help="print <P> for a Pauli string over the declared "
@@ -146,7 +158,8 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
               shots: int | None = None, out=None, source: str | None = None,
               inspect=None, compile_mode: bool = False, fuse_width: int = 5,
               mesh=None, observables=(), backend: str = "statevector",
-              noise: str | None = None) -> int:
+              noise: str | None = None, trajectories: int | None = None,
+              traj_engine: str = "vmap") -> int:
     """Evaluate a file (reference ``evalFile``, Main.hs:23-32). Returns the
     exit code. ``source``, when given, is parsed as the text of ``path``
     (includes resolve relative to it) instead of reading the file;
@@ -161,7 +174,12 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
     declared qubits; each prints ``<P> = value``. ``backend="density"`` runs
     the exact density engine (:class:`~qubism_torch.run.noisy.DensityProgram`)
     under the ``noise`` spec, on one device or sharded over ``mesh``;
-    ``inspect`` then sees ``(rho, cregs)``."""
+    ``inspect`` then sees ``(rho, cregs)``. ``noise`` or ``trajectories`` on
+    the state-vector backend runs ``trajectories`` noisy trajectories
+    (:class:`~qubism_torch.run.noisy.TrajectoryProgram`, by ``traj_engine``,
+    the batch split over ``mesh``) and prints the counts over the classical
+    registers and each observable as mean +- stderr; ``inspect`` is not
+    called."""
     out = out or sys.stdout
     if source is None:
         try:
@@ -185,15 +203,19 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
     if backend not in ("statevector", "density"):
         print(f"qubism: --backend {backend}: not ported yet", file=out)
         return 2
-    if noise is not None and backend != "density":
-        print("qubism: --noise without --backend density: not ported yet", file=out)
-        return 2
     try:
         if backend == "density":
-            rc, ps = _run_density(ast, noise, mesh, compile_mode, seed, dump_state,
-                                  shots, observables, out)
+            rc, ps = _run_density(ast, noise, mesh, compile_mode or trajectories,
+                                  seed, dump_state, shots, observables, out)
             if rc:
                 return rc
+        elif noise is not None or trajectories is not None:
+            rc = _run_trajectories(ast, noise, trajectories, traj_engine, mesh,
+                                   compile_mode, seed, shots, observables, out)
+            if rc:
+                return rc
+            print("Done.", file=out)
+            return 0
         elif mesh:
             from .run.compiler import CompiledProgram
 
@@ -245,11 +267,68 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
     return 0
 
 
+def _run_trajectories(ast, noise, trajectories, traj_engine, mesh, compile_mode, seed,
+                      shots, observables, out) -> int:
+    """Trajectory mode: run the program as noisy trajectories, print the
+    counts over the classical registers and the observables as mean +-
+    stderr, as the JAX package's CLI does. Returns the exit code."""
+    from .run.noisy import TrajectoryProgram, resolve_traj_mesh
+    from .run.traj_fused import FusedUnsupported
+
+    if compile_mode:
+        print("qubism: --noise/--trajectories is its own execution mode; drop --compile",
+              file=out)
+        return 2
+    # --mesh in trajectory mode splits the BATCH over devices (trajectories
+    # are embarrassingly parallel; no amplitude sharding)
+    try:
+        resolve_traj_mesh(mesh)
+        prog = TrajectoryProgram(ast, noise=noise)
+    except ValueError as e:
+        print(f"qubism: {e}", file=out)
+        return 2
+    ntraj = trajectories or shots or 512
+    if not prog.n or (not prog.creg_names and not observables):
+        print("qubism: trajectory mode reports classical-register counts; the program "
+              "declares none (add a creg or --observable)", file=out)
+        return 2
+    if mesh is not None and traj_engine == "fused":
+        # the fused engine has no mesh path: an explicit request errors
+        print("qubism: --traj-engine fused is incompatible with --mesh", file=out)
+        return 2
+    try:
+        if mesh is None:
+            counts = prog.counts(ntraj, seed=seed, engine=traj_engine) if prog.creg_names else {}
+        else:
+            counts = prog.counts(ntraj, seed=seed, mesh=mesh) if prog.creg_names else {}
+    except FusedUnsupported as e:
+        print(f"qubism: --traj-engine fused: {e} (drop the flag or use --traj-engine auto)",
+              file=out)
+        return 2
+    if prog.creg_names:
+        print(f"Counts over classical registers ({ntraj} trajectories):", file=out)
+        for row in sorted(counts):
+            print(f"  {row}: {counts[row]}", file=out)
+    if observables:
+        # every observable reduces on one trajectory run
+        memo = {}
+
+        def compute(p_):
+            if not memo:
+                ups = [o.upper() for o in observables]
+                memo.update(zip(ups, prog.expectations(ups, ntraj, seed=seed, mesh=mesh)))
+            return memo[p_]
+
+        return _print_observables(observables, compute, out)
+    return 0
+
+
 def _run_density(ast, noise, mesh, compile_mode, seed, dump_state, shots, observables,
                  out):
     """The exact density backend: run the program, print its dump, shot
     counts and observables as the JAX package's ``--backend density`` does.
-    Returns (exit code, (rho, cregs))."""
+    Returns (exit code, (rho, cregs)). ``compile_mode`` (or trajectories)
+    is refused."""
     import torch
 
     from .run.noisy import DensityProgram
@@ -316,14 +395,18 @@ def _print_basis_counts(counts, name, shots, out):
 
 def _print_observables(observables, compute, out) -> int:
     """Print one ``<P> = value`` line per --observable; ``compute(pauli)``
-    returns a float. Returns 0 on success, 2 on a rejected Pauli string."""
+    returns a float or a (mean, stderr) pair. Returns 0 on success, 2 on a
+    rejected Pauli string."""
     for pauli in observables:
         try:
             val = compute(pauli.upper())
         except ValueError as e:
             print(f"qubism: --observable: {e}", file=out)
             return 2
-        print(f"<{pauli.upper()}> = {float(val):.6f}", file=out)
+        if isinstance(val, tuple):
+            print(f"<{pauli.upper()}> = {val[0]:.6f} +- {val[1]:.6f}", file=out)
+        else:
+            print(f"<{pauli.upper()}> = {float(val):.6f}", file=out)
     return 0
 
 
@@ -462,7 +545,8 @@ def main(argv=None) -> int:
                          shots=args.shots, compile_mode=args.compile_mode,
                          fuse_width=args.fuse_width, mesh=args.mesh,
                          observables=args.observable, backend=args.backend,
-                         noise=args.noise)
+                         noise=args.noise, trajectories=args.trajectories,
+                         traj_engine=args.traj_engine)
     try:
         from .ops.apply import device
 

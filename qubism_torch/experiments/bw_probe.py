@@ -19,7 +19,10 @@ over its time), ``bound_ms`` and ``bound_by`` (the least time of one H100
 SXM for those bytes and operations, :func:`qubism_torch.ops.probes.bound`),
 ``frac_peak`` (``gbps`` over 3350 GB/s), ``frac_bound``, ``plain_ms``
 (the kernel's plain version), ``library_ms`` (one PyTorch call computing the
-same function, where there is one), ``launches`` (kernel launches counted in
+same function, where there is one; a pair pass without tables: one
+``torch.einsum`` of its 2x2 over the pair view) and ``library_rel_l2`` (that
+call's result against the plain version's, where it is held: it must be
+within :data:`LIBRARY_TOL`), ``launches`` (kernel launches counted in
 the variant's timed run), ``replaces`` (the JAX names it stands for), and
 the card's ``device`` name and ``power_limit`` (``nvidia-smi``).
 
@@ -49,6 +52,8 @@ K = 16  # passes per timed window
 REPS = 3  # windows; the best is kept
 #: a reading above this share of the published peak is a broken measurement
 MAX_FRAC_PEAK = 1.05
+#: the most a library call may differ from the plain version (relative L2)
+LIBRARY_TOL = 1e-5
 PEAK_GBPS = probes.PEAK_BYTES_PER_S / 1e9
 
 _H = np.float32(0.70710678)
@@ -73,6 +78,9 @@ class Probe:
     flops: int
     #: the operations run as three TF32 products on the tensor cores
     tf32x3: bool = False
+    #: relative L2 of the library call's result against the plain version's
+    #: (None: not held, the library call updates the state in place)
+    library_err: float | None = None
 
 
 def _state(n: int, device) -> torch.Tensor:
@@ -139,10 +147,24 @@ def _pair(q_of_n, tables: str = "", coef: str = "h", phase=probes.PHASE,
         lane = table(C) if "lane" in tables else None
         s = _state(n, device)
         kw = dict(phase=phase, row=row, lane=lane)
+        library, err = None, None
+        if not tables:
+            # one torch.einsum of the 2x2 (the |1> phase folded into its
+            # second row) over the (rest, 2, tail) pair view, into a new
+            # tensor, held against the plain version first. With a row or
+            # lane table the phase depends on the position: no single call
+            # computes it without a state-sized table multiplied out first.
+            cf = np.asarray(u, dtype=np.complex128).reshape(2, 2) * np.array([[1], [phase]])
+            m = torch.from_numpy(cf.astype(np.complex64)).to(device)
+            library = lambda: torch.einsum("ij,xjy->xiy", m, s.view(-1, 2, tail))  # noqa: E731
+            want = probes.pair_plain(s.clone(), q, u, n, **kw)
+            got = library().reshape(-1)
+            err = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+            del want, got
         return Probe("probe_pair", s,
                      lambda: probes.pair(s, q, u, n, geometry=geometry, **kw),
                      lambda: probes.pair_plain(s, q, u, n, **kw),
-                     None, *probes.pair_cost(n, row, lane))
+                     library, *probes.pair_cost(n, row, lane), library_err=err)
 
     return build
 
@@ -284,6 +306,10 @@ def measure(name: str, n: int, device="cuda", card_info=(None, None)) -> dict:
     launched = _counts()[kernel] - before[kernel] if kernel else 0
     plain_ms = time_pass(probe.plain) if probe.plain else None
     library_ms = time_pass(probe.library) if probe.library else None
+    library_err = probe.library_err
+    if library_err is not None and library_err > LIBRARY_TOL:
+        raise RuntimeError(f"bw_probe {name}: the library call differs from the plain "
+                           f"version by {library_err:.3e} (relative L2)")
     bound_ms, bound_by = probes.bound(probe.nbytes, probe.flops, probe.tf32x3)
     gbps = probe.nbytes / ms / 1e6
     del probe
@@ -292,7 +318,7 @@ def measure(name: str, n: int, device="cuda", card_info=(None, None)) -> dict:
     return {"variant": name, "n": n, "kernel": kernel, "ms_per_pass": ms,
             "gbps": gbps, "bound_ms": bound_ms, "bound_by": bound_by,
             "frac_peak": gbps / PEAK_GBPS, "frac_bound": bound_ms / ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "launches": launched,
+            "library_ms": library_ms, "library_rel_l2": library_err, "launches": launched,
             "replaces": [j for j, p in JAX_VARIANTS.items() if p == name],
             "device": card_info[0], "power_limit": card_info[1]}
 

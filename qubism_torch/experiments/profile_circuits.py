@@ -58,7 +58,10 @@ def profile(label: str, call, n: int) -> dict:
     wall = time.perf_counter() - t0
     device_ms = start.elapsed_time(end)
 
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: host events are not read here, and a call of
+    # many small host ops (the adjoint engine's contraction) makes them slow
+    # to record and to walk
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
     kernels: dict = {}

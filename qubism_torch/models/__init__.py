@@ -1,6 +1,7 @@
 """Circuit families for benchmarks and examples, Hamiltonians, Trotterized
-dynamics, and differentiable variational circuits (VQE / QAOA by autograd
-and by the adjoint method)."""
+dynamics (closed, and open by the exact density matrix or by MCWF
+trajectories), quantum trajectories, and differentiable variational circuits
+(VQE / QAOA by autograd and by the adjoint method)."""
 
 from .variational import (  # noqa: F401
     Ansatz,
@@ -26,11 +27,21 @@ from .dynamics import (  # noqa: F401
     imaginary_time_evolve,
     ite_step_prims,
     lindblad_evolve,
+    lindblad_mcwf,
+    lindblad_step_program,
     pauli_exp_prim,
     pauli_rotation_prim,
     spectral_function,
     trotter_prims,
     trotter_step_prims,
+)
+from .trajectories import (  # noqa: F401
+    ChannelOp,
+    run_trajectories,
+    trajectory_expectation,
+    trajectory_pauli_sum,
+    trajectory_probs,
+    trajectory_sample,
 )
 from .hamiltonians import (  # noqa: F401
     h2_minimal,

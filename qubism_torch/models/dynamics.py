@@ -336,16 +336,35 @@ def lindblad_evolve(rho, h_terms, collapse, t: float, steps: int,
 
 
 def lindblad_step_program(h_terms, collapse, dt: float, order: int = 2):
-    """One Strang step of the Lindblad generator as a trajectory program;
-    needs models/trajectories.py, which is not ported yet."""
-    raise NotImplementedError("lindblad_step_program: the trajectory engine "
-                              "(models/trajectories.py) is not ported yet")
+    """ONE Strang step of the Lindblad generator as a trajectory program
+    (Prims + :class:`~qubism_torch.models.trajectories.ChannelOp`s):
+    dissipator half-step channels, the unitary Trotter step, the halves
+    reversed. Repeat ``steps`` times (Python list multiply) and feed to
+    :func:`~qubism_torch.models.trajectories.run_trajectories`: the MCWF
+    unraveling of :func:`lindblad_evolve`, at memory T * 2^n instead of
+    4^n."""
+    from .trajectories import ChannelOp
+
+    halves = [ChannelOp(kr, tg) for tg, kr in _halves(collapse, dt)]
+    hstep = trotter_step_prims(h_terms, dt, order) if h_terms else []
+    return halves + hstep + halves[::-1]
 
 
 def lindblad_mcwf(n: int, prep_prims, h_terms, collapse, t: float,
                   steps: int, ntraj: int, observables=None, seed: int = 0,
-                  order: int = 2):
-    """Monte-Carlo wavefunction integration of the master equation; needs
-    models/trajectories.py, which is not ported yet."""
-    raise NotImplementedError("lindblad_mcwf: the trajectory engine "
-                              "(models/trajectories.py) is not ported yet")
+                  order: int = 2, uniforms=None):
+    """Monte-Carlo wavefunction integration of the master equation:
+    ``ntraj`` pure trajectories of ``prep + steps x Strang step`` run as
+    ONE batch. Returns ``(states, estimates)`` where ``states`` is the
+    (T, 2^n) trajectory batch and ``estimates[j] = (mean, stderr)`` per
+    observable Pauli string (None when ``observables`` is None), converging
+    to :func:`lindblad_evolve`'s exact density values at ~1/sqrt(T).
+    ``uniforms`` ((T, S) floats) replaces the seeded channel draws."""
+    from .trajectories import run_trajectories, trajectory_expectation
+
+    program = list(prep_prims) + lindblad_step_program(
+        h_terms, collapse, t / steps, order) * steps
+    states = run_trajectories(n, program, ntraj, seed=seed, uniforms=uniforms)
+    if observables is None:
+        return states, None
+    return states, [trajectory_expectation(states, p, n) for p in observables]

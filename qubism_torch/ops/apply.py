@@ -79,7 +79,10 @@ def zero_state(n: int) -> torch.Tensor:
 
 
 def as_operand(a, like: torch.Tensor) -> torch.Tensor:
-    """A host numpy complex array as a complex64 tensor on ``like``'s device."""
+    """A host numpy complex array (or a tensor) as a complex64 tensor on
+    ``like``'s device."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=like.device, dtype=torch.complex64)
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.complex64)).to(like.device)
 
 

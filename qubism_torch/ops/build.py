@@ -100,6 +100,8 @@ def library() -> ctypes.CDLL:
     # every entry ends in (device index, stream)
     lib.qk_gate.argtypes = [p, i64, i32, p, p, i32, p]
     lib.qk_layer1q.argtypes = [p, i64, i32, p, p, i32, p]
+    lib.qk_gate_dev.argtypes = [p, i64, i32, p, p, i32, p]
+    lib.qk_layer1q_dev.argtypes = [p, i64, i32, p, p, i32, p]
     lib.qk_lane.argtypes = [p, i64, p, i32, p]
     lib.qk_diag.argtypes = [p, i64, p, i64, p, i32, i32, i32, p, i32, p]
     lib.qk_diag1.argtypes = [p, i64, i32, p, p, i32, p]
@@ -107,7 +109,8 @@ def library() -> ctypes.CDLL:
     lib.qk_butterfly.argtypes = [p, i32, i64, p, i32, p]
     lib.qk_probe_stream.argtypes = [i32, p, p, i64, p, p, p, i64, p, i32, i32, i32, p]
     lib.qk_probe_pair.argtypes = [p, p, i64, i32, p, p, p, i32, i32, i32, i32, p]
-    for fn in (lib.qk_gate, lib.qk_layer1q, lib.qk_lane, lib.qk_diag, lib.qk_diag1,
+    for fn in (lib.qk_gate, lib.qk_layer1q, lib.qk_gate_dev, lib.qk_layer1q_dev,
+               lib.qk_lane, lib.qk_diag, lib.qk_diag1,
                lib.qk_stage, lib.qk_butterfly, lib.qk_probe_stream,
                lib.qk_probe_pair):
         fn.restype = ctypes.c_int

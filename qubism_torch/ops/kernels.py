@@ -22,6 +22,11 @@ stage kernels read from device memory can be prepared once
 (:func:`diag_prepare`, :func:`lane_prepare`, :func:`stage_block_prepare`),
 so that a compiled circuit launches kernels without a host-to-device copy;
 the diag and lane wrappers also take raw host operands and upload them.
+K1, K4 and K3 also have a device-operand mode (:func:`gate_dev`,
+:func:`layer1q_dev`, :func:`lane_dev`): the matrix is a complex64 tensor on
+the state's device, chosen there (a trajectory's realized operand, an MCWF
+branch), so a run of launches needs no host copy at all; they count their
+launches under the same names and their plain versions are the same.
 :data:`KERNEL_FNS` maps each kernel name to its (wrapper, plain version).
 """
 
@@ -155,6 +160,36 @@ def gate(state: torch.Tensor, u, targets: tuple[int, ...], n: int) -> torch.Tens
         _ptr(state), n, k, _host(pos), _host(coef), d, s))
 
 
+def _check_operand(name: str, t, shape, state: torch.Tensor):
+    """A device operand: a contiguous complex64 tensor of ``shape`` on the
+    state's device, 8-byte aligned (the kernels read it as float2)."""
+    if (not isinstance(t, torch.Tensor) or t.dtype != torch.complex64
+            or not t.is_contiguous() or tuple(t.shape) != tuple(shape)
+            or t.device != state.device or t.data_ptr() % 8):
+        got = (f"{t.dtype} {tuple(t.shape)} on {t.device}" if isinstance(t, torch.Tensor)
+               else type(t).__name__)
+        raise ValueError(f"{name}: the device operand must be a contiguous complex64 "
+                         f"tensor {tuple(shape)} on {state.device}, got {got}")
+
+
+def gate_dev(state: torch.Tensor, u: torch.Tensor, targets: tuple[int, ...],
+             n: int) -> torch.Tensor:
+    """:func:`gate` with U a complex64 (2^k, 2^k) tensor on the state's
+    device (a slice of a batch of operands, or a matrix computed there): the
+    kernel reads it from device memory, so no host copy of U is needed. Its
+    plain version is :func:`gate_plain` with the tensor."""
+    k = len(targets)
+    if not 1 <= k <= 4 or list(targets) != sorted(set(targets)):
+        raise ValueError(f"gate: targets {targets} must be 1..4 sorted distinct qubits")
+    _check_state(state, n)
+    if state.device.type == "cpu":
+        return gate_plain(state, u, targets, n)
+    _check_operand("gate", u, (1 << k, 1 << k), state)
+    pos = _positions(targets, n)
+    return _launch(state, "gate", lambda lib, d, s: lib.qk_gate_dev(
+        _ptr(state), n, k, _host(pos), _ptr(u), d, s))
+
+
 # ---------------------------------------------------------------------------
 # K4: a layer of disjoint 1q gates
 # ---------------------------------------------------------------------------
@@ -181,6 +216,24 @@ def layer1q(state: torch.Tensor, gates, n: int) -> torch.Tensor:
     pos = _positions(qs, n)
     return _launch(state, "layer1q", lambda lib, d, s: lib.qk_layer1q(
         _ptr(state), n, m, _host(pos), _host(coef), d, s))
+
+
+def layer1q_dev(state: torch.Tensor, coefs: torch.Tensor, qubits, n: int) -> torch.Tensor:
+    """:func:`layer1q` with the m 2x2 matrices a complex64 (m, 2, 2) tensor on
+    the state's device (gate j on ``qubits[j]``), read by the kernel from
+    device memory. Its plain version is :func:`layer1q_plain` with the
+    tensor's matrices."""
+    qs = [int(q) for q in qubits]
+    m = len(qs)
+    if not 1 <= m <= _LAYER1Q_MAX or len(set(qs)) != m:
+        raise ValueError(f"layer1q: need 1..{_LAYER1Q_MAX} distinct qubits, got {qs}")
+    _check_state(state, n)
+    if state.device.type == "cpu":
+        return layer1q_plain(state, tuple(zip(coefs, qs)), n)
+    _check_operand("layer1q", coefs, (m, 2, 2), state)
+    pos = _positions(qs, n)
+    return _launch(state, "layer1q", lambda lib, d, s: lib.qk_layer1q_dev(
+        _ptr(state), n, m, _host(pos), _ptr(coefs), d, s))
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +274,34 @@ def lane_parts(u: np.ndarray) -> np.ndarray:
     a = np.ascontiguousarray(a.transpose(1, 4, 6, 2, 0, 3, 5)).reshape(2, 32, 8, 2, 8, 4)
     big = round_tf32(a)
     return np.ascontiguousarray(np.stack([big, a - big], axis=1))
+
+
+def lane_parts_dev(u: torch.Tensor) -> torch.Tensor:
+    """:func:`lane_parts` of a complex64 (128, 128) tensor, computed where it
+    lies: the same permutation, and the TF32 rounding on the int32 view of
+    the bit pattern (a wrapping add, then the mask), so the result is bit for
+    bit the host one and a matrix chosen on the card needs no host trip."""
+    a = torch.view_as_real(u.resolve_conj()).permute(2, 0, 1)  # w, row, col
+    a = (a.reshape(2, 2, 8, 8, 16, 4, 2).permute(1, 4, 6, 2, 0, 3, 5)
+         .reshape(2, 32, 8, 2, 8, 4).contiguous())
+    big = ((a.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return torch.stack([big, a - big], dim=1)
+
+
+def lane_dev(state: torch.Tensor, u: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`lane` with U a complex64 (L, L) tensor on the state's device:
+    its operand (:func:`lane_parts_dev` for L = 128, U^T for a smaller L) is
+    formed there, so nothing crosses from the host. Its plain version is
+    :func:`lane_plain` with the tensor."""
+    lanes = 1 << min(n, _COL)
+    _check_state(state, n)
+    if state.device.type == "cpu":
+        return lane_plain(state, u, n)
+    _check_operand("lane", u, (lanes, lanes), state)
+    _check_aligned("lane", state)
+    dev = lane_parts_dev(u) if lanes == 128 else u.T.contiguous()
+    return _launch(state, "lane", lambda lib, d, s: lib.qk_lane(
+        _ptr(state), n, _ptr(dev), d, s))
 
 
 def lane_prepare(u, n: int, device) -> LanePlan:

@@ -66,13 +66,9 @@ def measure_qubit(state: torch.Tensor, gen: torch.Generator | None, q: int, n: i
     return outcome
 
 
-def marginal_table(state: torch.Tensor, n: int, measured) -> np.ndarray:
-    """|a|^2 summed over the unmeasured qubits: a (2^k,) float64 host table,
-    bit order = sorted(measured), MSB = smallest qubit. Contiguous runs of
-    measured / unmeasured qubits are grouped, so the view has one axis per
-    run."""
-    p = state.abs()
-    p.mul_(p)
+def _run_view(n: int, measured):
+    """(view shape, axes to sum) of a 2^n vector for a marginal table over
+    ``measured``: one axis per run of measured / unmeasured qubits."""
     runs: list[list] = []  # [log2 size, measured?]
     for q in range(n):
         keep = q in measured
@@ -80,10 +76,28 @@ def marginal_table(state: torch.Tensor, n: int, measured) -> np.ndarray:
             runs[-1][0] += 1
         else:
             runs.append([1, keep])
-    view = p.view([1 << size for size, _ in runs])
-    drop = [a for a, (_, keep) in enumerate(runs) if not keep]
-    table = view.sum(dim=drop) if drop else view
-    return table.reshape(-1).double().cpu().numpy()
+    return ([1 << size for size, _ in runs],
+            [a for a, (_, keep) in enumerate(runs) if not keep])
+
+
+def marginal_table(state: torch.Tensor, n: int, measured) -> np.ndarray:
+    """|a|^2 summed over the unmeasured qubits: a (2^k,) float64 host table,
+    bit order = sorted(measured), MSB = smallest qubit."""
+    return marginal_table_dev(state, n, measured).double().cpu().numpy()
+
+
+def marginal_table_dev(state: torch.Tensor, n: int, measured) -> torch.Tensor:
+    """:func:`marginal_table` as a (2^k,) float32 tensor on the state's
+    device, with no host read (the counterpart of the JAX package's
+    ``_marginal_table_traced``): one reduction that reads the state once
+    (the squared 2-norm over the unmeasured axes) and writes 2^k values.
+    Contiguous runs of measured / unmeasured qubits are grouped, so the view
+    has one axis per run."""
+    shape, drop = _run_view(n, measured)
+    view = state.view(shape)
+    if not drop:
+        return view.abs().square_().reshape(-1)
+    return torch.linalg.vector_norm(view, dim=drop).square_().reshape(-1)
 
 
 def ancestral_draws(table: np.ndarray, qubits, uniforms) -> list[int]:
@@ -153,6 +167,111 @@ def measure_qubits(state: torch.Tensor, gen: torch.Generator | None, qubits, n: 
         project(state, n, chunk, o, 1.0 / math.sqrt(mass) if mass > 0 else 0.0)
         outs.extend(o)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# Without host reads: a batch of trajectories, and device-side draws
+# ---------------------------------------------------------------------------
+#
+# The trajectory engines keep every outcome on the device: a batch (T, 2^n)
+# of states measures with a per-row outcome tensor, and a single state's
+# draws, projections and creg bits are 0-d tensors, so a run of kernels and
+# measurements never waits for the host.
+
+
+def _batch_halves(psi: torch.Tensor, q: int, n: int) -> torch.Tensor:
+    """(T, 2^q, 2, 2^(n-1-q)) view of a (T, 2^n) batch: axis 2 is qubit q."""
+    return psi.view(psi.shape[0], 1 << q, 2, 1 << (n - 1 - q))
+
+
+def prob_one_batch(psi: torch.Tensor, q: int, n: int) -> torch.Tensor:
+    """(T,) float32 Born probabilities that qubit q reads 1, one per row of a
+    (T, 2^n) batch (the counterpart of ``prob_one_traced`` under vmap)."""
+    r = torch.view_as_real(_batch_halves(psi, q, n)[:, :, 1, :])
+    return (r * r).sum(dim=(1, 2, 3))
+
+
+def collapse_batch(psi: torch.Tensor, outcome: torch.Tensor, q: int, n: int) -> torch.Tensor:
+    """Each row of a (T, 2^n) batch projected onto its ``outcome`` (a (T,)
+    int tensor, or an int) for qubit q and renormalized, as a new tensor (the
+    counterpart of ``collapse_traced`` under vmap). A row whose projection
+    has no norm becomes the zero vector."""
+    v = _batch_halves(psi, q, n)
+    side = torch.arange(2, device=psi.device)
+    out = torch.as_tensor(outcome, device=psi.device).reshape(-1, 1)
+    sel = (side[None, :] == out)[:, None, :, None]
+    m = torch.where(sel, v, torch.zeros((), dtype=v.dtype, device=v.device))
+    r = torch.view_as_real(m)
+    nrm = torch.sqrt((r * r).sum(dim=(1, 2, 3, 4)))
+    scale = 1.0 / torch.where(nrm == 0, torch.ones_like(nrm), nrm)
+    return (m * scale[:, None, None, None]).reshape(psi.shape)
+
+
+def bit_table(k: int, device) -> torch.Tensor:
+    """(k, 2^k) float32: row s is bit s (MSB first) of each table index."""
+    idx = np.arange(1 << k, dtype=np.int64)
+    bits = np.stack([(idx >> (k - 1 - s)) & 1 for s in range(k)]).astype(np.float32)
+    return torch.from_numpy(bits.reshape(k, 1 << k)).to(device)
+
+
+def ancestral_draws_dev(table: torch.Tensor, qubits, uniforms: torch.Tensor,
+                        bits: torch.Tensor):
+    """:func:`ancestral_draws` on a device table with device uniforms (the
+    counterpart of ``_ancestral_draws_traced`` with operand uniforms):
+    returns (outcomes, a list of 0-d float32 tensors in ``qubits`` order, and
+    the (2^k,) mask of the drawn outcome). ``bits`` is :func:`bit_table` of
+    k on the table's device. The Born rule is the correct one."""
+    srt = sorted(qubits)
+    mask = torch.ones_like(table)
+    outcomes = []
+    for i, q in enumerate(qubits):
+        b1 = bits[srt.index(q)]
+        masked = table * mask
+        tot = masked.sum()
+        p1 = torch.where(tot > 0, (masked * b1).sum() / tot, torch.zeros_like(tot))
+        o = (uniforms[i] < p1).to(table.dtype)
+        outcomes.append(o)
+        mask = mask * (b1 * o + (1.0 - b1) * (1.0 - o))
+    return outcomes, mask
+
+
+class Projector:
+    """The joint projection of ``qubits`` on a 2^n state as a row indicator
+    times a column indicator over a (2^(n-c), 2^c) view, c = min(n, 15), with
+    the outcomes and the scale given as device tensors (the counterpart of
+    ``_projection_rowcol_traced``): no host read and no state-sized temp."""
+
+    def __init__(self, qubits, n: int, device):
+        self.n = n
+        self.c = min(n, 15)
+        ridx = np.arange(1 << (n - self.c), dtype=np.int64)
+        cidx = np.arange(1 << self.c, dtype=np.int64)
+        self.parts = []  # (on the rows?, indicator of bit = 1)
+        for q in qubits:
+            pos = n - 1 - q
+            rows = pos >= self.c
+            b = ((ridx >> (pos - self.c)) & 1) if rows else ((cidx >> pos) & 1)
+            self.parts.append((rows, torch.from_numpy(b.astype(np.float32)).to(device)))
+
+    def vectors(self, outcomes, scale: torch.Tensor):
+        """(row vector times ``scale``, column vector) for the outcomes."""
+        dev = scale.device
+        rowvec = scale.reshape(1).expand(1 << (self.n - self.c)).clone()
+        colvec = torch.ones(1 << self.c, dtype=torch.float32, device=dev)
+        for (rows, b), o in zip(self.parts, outcomes):
+            f = b * o + (1.0 - b) * (1.0 - o)
+            if rows:
+                rowvec = rowvec * f
+            else:
+                colvec = colvec * f
+        return rowvec, colvec
+
+    def apply(self, state: torch.Tensor, rowvec: torch.Tensor, colvec: torch.Tensor):
+        """Multiply the state by the indicators, in place."""
+        view = state.view(1 << (self.n - self.c), 1 << self.c)
+        view.mul_(rowvec[:, None])
+        view.mul_(colvec[None, :])
+        return state
 
 
 def probabilities(state: torch.Tensor) -> torch.Tensor:

@@ -3,10 +3,10 @@
 An inverse CDF with ``searchsorted(side="right")`` semantics, as the JAX
 package's ``_sample_parts``: shot u in [0, total) picks the first index whose
 inclusive prefix mass exceeds u. It runs in two levels so no state-sized
-prefix sum is built: per-row masses (rows of 2^11 amplitudes) accumulated in
-float64, a float64 CDF over the rows to pick each shot's row, then the
-float64 prefix sum of that one row. A flat float32 cumsum over 2^30 terms
-would lose the small masses.
+prefix sum is built: per-row masses (rows of 2^11 amplitudes, one read of
+the state: each row's squared float32 2-norm), a float64 CDF over the rows
+to pick each shot's row, then the float64 prefix sum of that one row. A flat
+float32 cumsum over 2^30 terms would lose the small masses.
 """
 
 from __future__ import annotations
@@ -18,25 +18,13 @@ from .measure import draw
 
 #: leaf row width of the two-level search
 _LEAF_BITS = 11
-#: amplitudes per chunk when summing row masses (bounds the float temps)
-_CHUNK = 1 << 24
-
-
-def _row_masses(state: torch.Tensor, width: int) -> torch.Tensor:
-    """float64 probability mass of each row of ``width`` amplitudes."""
-    rows = state.view(-1, width)
-    step = max(1, _CHUNK // width)
-    out = []
-    for r in range(0, rows.shape[0], step):
-        blk = torch.view_as_real(rows[r:r + step]).double()
-        out.append(blk.square().sum(dim=(1, 2)))
-    return torch.cat(out)
 
 
 def row_cdf(state: torch.Tensor, n: int) -> torch.Tensor:
     """The float64 inclusive prefix sum of the row masses (rows of
     2^min(n, 11) amplitudes); its last entry is the state's total mass."""
-    return torch.cumsum(_row_masses(state, 1 << min(n, _LEAF_BITS)), 0)
+    rows = state.view(-1, 1 << min(n, _LEAF_BITS))
+    return torch.cumsum(torch.linalg.vector_norm(rows, dim=1).double().square_(), 0)
 
 
 def search(state: torch.Tensor, n: int, target: torch.Tensor, cdf: torch.Tensor) -> torch.Tensor:
@@ -61,6 +49,22 @@ def sample_indices(state: torch.Tensor, n: int, shots: int,
     u = torch.from_numpy(draw(gen, shots, uniforms)).to(state.device)
     cdf = row_cdf(state, n)
     return search(state, n, u * cdf[-1], cdf).cpu().numpy()
+
+
+def sample_into(state: torch.Tensor, n: int, u: torch.Tensor, out: torch.Tensor,
+                alive: torch.Tensor | None = None) -> torch.Tensor:
+    """One Born sample of ``state`` with the device uniform ``u`` (a (1,)
+    float64 tensor in [0, 1)), written into ``out`` (a (1,) int64 device
+    tensor, e.g. one entry of a trajectory batch's outcome vector) with no
+    host read: the counterpart of the JAX package's ``_sample_parts`` /
+    ``_sample_parts_big`` for one shot, in int64 so no index is split.
+    ``alive`` (a 0-d bool tensor) False writes index 0: a state annihilated
+    by a projection measures as all-zero bits."""
+    cdf = row_cdf(state, n)
+    idx = search(state, n, u.reshape(1) * cdf[-1:], cdf)
+    if alive is not None:
+        idx = torch.where(alive, idx, torch.zeros_like(idx))
+    return out.copy_(idx)
 
 
 def sample_counts(state: torch.Tensor, n: int, shots: int,

@@ -1,10 +1,12 @@
-"""Noisy OpenQASM programs: the noise-spec parsing and the exact density
-backend.
+"""Noisy OpenQASM programs: the noise-spec parsing, quantum trajectories
+and the exact density backend.
 
-Counterpart of qubism_tpu/run/noisy.py, the exact part: ``--noise`` specs
-(parsed and resolved against a program's layout, with the JAX package's
-messages) and :class:`DensityProgram`, which runs a program on a vectorized
-density matrix with every channel applied exactly.
+Counterpart of qubism_tpu/run/noisy.py: ``--noise`` specs (parsed and
+resolved against a program's layout, with the JAX package's messages),
+:class:`TrajectoryProgram`, which runs a whole program (gates, channels,
+mid-circuit measurement, feed-forward, reset) as a batch of independent
+noisy trajectories, and :class:`DensityProgram`, which runs it on a
+vectorized density matrix with every channel applied exactly.
 
 Noise is circuit-level: each 1-qubit Kraus channel in the model is applied
 to every qubit a gate touches, after the gate; 2-qubit channels (dep2) fire
@@ -13,23 +15,27 @@ target suffix (``dep:0.02@q[0]+anc``): a targeted 1q channel fires only on
 gate qubits in its set, a targeted 2q channel only when BOTH gate qubits are
 in the set. Items are ``+``-separated: a qreg name (all its qubits),
 ``name[i]`` (one qubit), or a bare absolute qubit index.
-
-The sampled counterpart (``TrajectoryProgram``, with ``resolve_traj_mesh``
-and ``_traj_sharding``) is not ported yet; it goes below
-:func:`parse_noise_spec`.
 """
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
+from ..config import config
 from ..core import density as channels
 from ..core.creg import CReg
+from ..models import trajectories as T
+from ..models.trajectories import _unitary_mix
+from ..ops import apply as A
+from ..ops import measure as M
+from ..ops.apply import _sort_targets
 
-__all__ = ["DensityProgram", "parse_noise_spec", "NOISE_CHANNELS",
-           "split_channel_target", "noise_spec_targets",
-           "resolve_noise_targets"]
+__all__ = ["TrajectoryProgram", "DensityProgram", "parse_noise_spec",
+           "NOISE_CHANNELS", "split_channel_target", "noise_spec_targets",
+           "resolve_noise_targets", "resolve_traj_mesh"]
 
 #: name (and aliases) -> 1-qubit Kraus-list factory taking one float param.
 NOISE_CHANNELS = {
@@ -192,7 +198,6 @@ def _normalize_noise(noise, layout, qreg_sizes, n):
     return chans, tsets
 
 
-
 def _parse_noise_parts(spec: str):
     """ONE tokenizer pass over a --noise spec: ``[(label, kraus_list,
     tspec_or_None), ...]`` — channel data and target specs come from the
@@ -229,7 +234,383 @@ def parse_noise_spec(spec: str):
     return [(label, ks) for label, ks, _ in _parse_noise_parts(spec)]
 
 
-# TrajectoryProgram, resolve_traj_mesh and _traj_sharding go here.
+def resolve_traj_mesh(mesh):
+    """Resolve a ``--mesh`` value to the devices a trajectory batch is split
+    over, or ``None``.
+
+    Trajectories are embarrassingly parallel, so unlike the amplitude-sharded
+    state-vector path (``parallel/sharded.py``) the mesh here only splits the
+    batch: each device runs ``batch/D`` whole trajectories, and the only
+    traffic between devices is the final gather of per-trajectory outcomes.
+    Accepts a device count (``int``; on the CPU, that many shards of the one
+    CPU device) or a sequence of ``torch.device``s."""
+    if mesh is None:
+        return None
+    if not isinstance(mesh, int):
+        devs = tuple(torch.device(d) for d in mesh)
+        return devs if len(devs) > 1 else None
+    d = int(mesh)
+    if torch.device(config.device).type == "cuda":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if d > have:
+            raise ValueError(f"--mesh {d}: only {have} device(s) visible")
+        devs = tuple(torch.device("cuda", i) for i in range(d))
+    else:
+        devs = (torch.device(config.device),) * d
+    return devs if d > 1 else None
+
+
+def _traj_split(batch, devs):
+    """The batch's rows split evenly over ``devs`` (the counterpart of the
+    JAX package's ``_traj_sharding``): [(device, rows)]."""
+    step = batch.shape[0] // len(devs)
+    return [(dev, batch[i * step:(i + 1) * step]) for i, dev in enumerate(devs)]
+
+
+def _count_sites(events, kchans, tsets, readout_p) -> int:
+    """The stochastic sites of one trajectory, in the order
+    :meth:`TrajectoryProgram._exec` draws them: channels after each gate,
+    one per measured qubit, then one readout flip per measured bit. A site
+    inside an ``if`` body counts whether or not the branch is taken."""
+    from .compiler import EvCond, EvGates, EvMeasure
+
+    s = 0
+    for ev in events:
+        if isinstance(ev, EvGates):
+            for p in ev.prims:
+                for (_, is2q), tset in zip(kchans, tsets):
+                    t = tuple(int(q) for q in p.targets)
+                    if is2q:
+                        s += len(t) == 2 and (tset is None or set(t) <= tset)
+                    else:
+                        s += sum(1 for q in t if tset is None or q in tset)
+        elif isinstance(ev, EvMeasure):
+            s += len(ev.qubits) * (2 if readout_p else 1)
+        elif isinstance(ev, EvCond):
+            s += _count_sites(ev.body, kchans, tsets, readout_p)
+    return s
+
+
+class TrajectoryProgram:
+    """A QASM program run as a batch of independent noisy trajectories.
+
+    ``noise`` is a spec string (see :func:`parse_noise_spec`) or an
+    already-parsed list; ``None`` runs noiseless trajectories (still
+    useful: independent mid-circuit re-runs per shot).
+
+    The vmapped engine of the JAX package (``engine="vmap"``) is a (T, 2^n)
+    batch here, every event applied to all rows at once by the out-of-place
+    appliers of :mod:`~qubism_torch.models.trajectories`. Classical
+    registers are (T, size) int32 bit tensors (column k = bit k, LSB-first);
+    feed-forward is branch-free (the op is applied, then kept per row by
+    ``torch.where`` on the predicate), so nothing is read back before the
+    end. Each trajectory takes one row of a (T, S) float64 uniform table
+    (S = :attr:`sites`), from a CPU generator seeded with ``seed`` or given
+    as ``uniforms``: site s gets the column the JAX package's site counter
+    gives it.
+    """
+
+    def __init__(self, ast, noise=None):
+        from .compiler import elaborate
+
+        (self.n, self.events, self.cregs0, self.layout,
+         self.qreg_sizes) = elaborate(ast)
+        self.readout_p = None
+        if isinstance(noise, str):
+            noise, self.readout_p = split_readout_spec(noise)
+        self.noise, self._tsets = _normalize_noise(
+            noise, self.layout, self.qreg_sizes, self.n)
+        self.creg_names = sorted(self.cregs0)
+        self.creg_sizes = {c: len(self.cregs0[c].bits) for c in self.creg_names}
+        # Each channel's Kraus set is split once on the host, in SPEC ORDER
+        # (non-commuting mixes like dep2+ad compose differently per order;
+        # DensityProgram applies spec order, so every engine must).
+        # Mixed-unitary channels (all Paulis) take the one-application CDF
+        # path (models/trajectories._unitary_mix). 2q channels carry BOTH
+        # target orderings: `cx q[2], q[0]` is descending, and its
+        # SWAP-conjugated variant applies on the sorted axes.
+        self._kchans = []
+        for _, ks, _ in self.noise:
+            is2q = np.asarray(ks[0]).shape[0] == 4
+            variants = []
+            for desc in ((False, True) if is2q else (False,)):
+                kss = ([_sort_targets(np.asarray(k, dtype=complex), (1, 0))[0] for k in ks]
+                       if desc else [np.asarray(k, dtype=complex) for k in ks])
+                mix = _unitary_mix(kss)
+                if mix is not None:
+                    variants.append(("umix", mix))
+                else:
+                    variants.append(("kraus", np.stack(kss).astype(np.complex64)))
+            self._kchans.append((tuple(variants), is2q))
+        #: stochastic sites per trajectory (columns of the uniform table)
+        self.sites = _count_sites(self.events, self._kchans, self._tsets, self.readout_p)
+        self._site = 0  # the site counter of a run
+
+    # -- batched execution --------------------------------------------------
+
+    def _u(self, u):
+        """The next stochastic site's (T,) float32 uniforms."""
+        col = u[:, self._site].contiguous()
+        self._site += 1
+        return col
+
+    @staticmethod
+    def _sel(pred, new, old):
+        if pred is None:
+            return new
+        return torch.where(pred.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+    def _readout(self, bits, u):
+        """The readout-error reporting flip (the state already collapsed on
+        the true bits)."""
+        if not self.readout_p:
+            return bits
+        p = np.float32(self.readout_p).item()
+        return [b ^ (self._u(u) < p).to(torch.int32) for b in bits]
+
+    def _write_creg_bits(self, cregs, writes, bits, pred):
+        """Store measured bits into the (T, size) creg bit tensors:
+        ``writes`` = per statement (creg, bit_index_or_None, count)."""
+        off = 0
+        for creg, bit_index, count in writes:
+            old = cregs[creg]
+            if bit_index is None:
+                val = torch.stack(bits[off:off + count], dim=1)
+            else:
+                val = old.clone()
+                val[:, bit_index] = bits[off]
+            cregs[creg] = self._sel(pred, val, old)
+            off += count
+
+    def _cond_hit(self, cregs, ev):
+        """`if (creg == value)` per row, against the constant's LSB-first
+        bit pattern (exact at any register width)."""
+        old = cregs[ev.creg]
+        size = self.creg_sizes[ev.creg]
+        if ev.value >> size:           # value cannot fit: never true
+            return torch.zeros(old.shape[0], dtype=torch.bool, device=old.device)
+        want = torch.tensor([(ev.value >> k) & 1 for k in range(size)],
+                            dtype=torch.int32, device=old.device)
+        return (old == want).all(dim=1)
+
+    def _apply_noise(self, new, p, u):
+        for (variants, is2q), tset in zip(self._kchans, self._tsets):
+            if is2q:
+                if len(p.targets) != 2:
+                    continue
+                t = tuple(int(q) for q in p.targets)
+                if tset is not None and not set(t) <= tset:
+                    continue   # targeted coupler channel
+                kind, kp = variants[t[0] > t[1]]
+                apply = T.apply_unitary_mix_batch if kind == "umix" else T.apply_channel_batch
+                new = apply(new, kp, tuple(sorted(t)), self.n, self._u(u))
+            else:
+                kind, kp = variants[0]
+                apply = T.apply_unitary_mix_batch if kind == "umix" else T.apply_channel_batch
+                for q in p.targets:
+                    if tset is not None and int(q) not in tset:
+                        continue
+                    new = apply(new, kp, (int(q),), self.n, self._u(u))
+        return new
+
+    def _exec(self, events, psi, cregs, u, pred):
+        from .compiler import EvCond, EvDump, EvGates, EvMeasure, EvReset
+
+        for ev in events:
+            if isinstance(ev, EvGates):
+                for p in ev.prims:
+                    new = self._apply_noise(T.apply_prim_batch(psi, p, self.n), p, u)
+                    psi = self._sel(pred, new, psi)
+            elif isinstance(ev, EvMeasure):
+                bits = []
+                new = psi
+                for q in ev.qubits:
+                    p1 = M.prob_one_batch(new, q, self.n)
+                    thr = torch.sqrt(p1) if config.reference_sqrt_born else p1
+                    bit = (self._u(u) < thr).to(torch.int32)
+                    new = M.collapse_batch(new, bit, q, self.n)
+                    bits.append(bit)
+                psi = self._sel(pred, new, psi)
+                self._write_creg_bits(cregs, ev.writes, self._readout(bits, u), pred)
+            elif isinstance(ev, EvReset):
+                new = psi
+                for q in ev.qubits:
+                    new = M.collapse_batch(new, 0, q, self.n)
+                psi = self._sel(pred, new, psi)
+            elif isinstance(ev, EvCond):
+                hit = self._cond_hit(cregs, ev)
+                sub = hit if pred is None else pred & hit
+                psi, cregs = self._exec(ev.body, psi, cregs, u, sub)
+            elif isinstance(ev, EvDump):
+                pass  # no per-trajectory dump inside a batch
+            else:  # pragma: no cover
+                raise TypeError(f"unknown event {type(ev).__name__}")
+        return psi, cregs
+
+    def _run_batch(self, u: torch.Tensor):
+        """Run one batch: ``u`` the (T, S) uniforms on the batch's device.
+        Returns (cregs dict of (T, size) int32 tensors, final (T, 2^n)
+        states or None for a program with no qubits)."""
+        self._site = 0
+        dev = u.device
+        u = u.to(torch.float32)
+        cregs = {c: torch.zeros((u.shape[0], self.creg_sizes[c]), dtype=torch.int32, device=dev)
+                 for c in self.creg_names}
+        psi = None
+        if self.n:
+            psi = T._zero_batch(u.shape[0], self.n, dev)
+            psi, cregs = self._exec(self.events, psi, cregs, u, None)
+        return cregs, psi
+
+    # -- host API -----------------------------------------------------------
+
+    #: Cap on simultaneously-live state words (batch x per-trajectory
+    #: cost): 2^28 x 4 B = 2 GiB of live trajectory state per batch.
+    _MAX_LIVE = 1 << 28
+
+    def _traj_live_cost(self) -> int:
+        """Per-trajectory live state in 4-byte words."""
+        return 2 << max(self.n, 1)
+
+    def _table(self, ntraj, seed, uniforms, padded):
+        """The (padded, S) float64 uniform table; injected ``uniforms``
+        ((ntraj, S)) are padded by repeating their last row."""
+        if uniforms is None:
+            return T.uniform_table(padded, self.sites, seed)
+        u = torch.as_tensor(np.asarray(uniforms, dtype=np.float64).reshape(ntraj, self.sites))
+        if padded > ntraj:
+            u = torch.cat([u, u[-1:].expand(padded - ntraj, -1)])
+        return u
+
+    def _batches(self, ntraj, seed, uniforms, mesh, max_live_words, fn):
+        """Run ``fn(uniforms on a device)`` over live-state-capped batches,
+        each split evenly over the mesh's devices; returns the per-batch,
+        per-device results in trajectory order. ``fn`` returns host values,
+        so the device holds one batch at a time, whatever ``ntraj`` is."""
+        devs = resolve_traj_mesh(mesh) or (A.device(),)
+        d = len(devs)
+        padded = -(-ntraj // d) * d
+        table = self._table(ntraj, seed, uniforms, padded)
+        cap = self._MAX_LIVE if max_live_words is None else max_live_words
+        per = max(1, cap // self._traj_live_cost())
+        batch = max(d, min(padded, per * d) // d * d)
+        out = []
+        for lo in range(0, padded, batch):
+            for dev, rows in _traj_split(table[lo:min(lo + batch, padded)], devs):
+                out.append(fn(rows.to(dev)))
+        return out
+
+    def run_vals(self, ntraj: int, seed: int | None = None, uniforms=None,
+                 return_states: bool = False, mesh=None,
+                 max_live_words: int | None = None, engine: str = "vmap"):
+        """Run ``ntraj`` trajectories. Returns a dict creg name -> (ntraj,
+        size) int32 outcome BIT arrays (column k = creg bit k, LSB-first:
+        exact at any register width), plus the (ntraj, 2^n) complex64 final
+        states (a CPU tensor) when ``return_states``.
+
+        Trajectories run in batches sized so the live state block (batch x
+        2^n complex64) stays under ~2 GiB per device (``max_live_words``
+        overrides :attr:`_MAX_LIVE`); small runs are one batch. ``mesh`` (a
+        device count or a sequence of devices, :func:`resolve_traj_mesh`)
+        splits each batch over D devices. Results do not depend on the batch
+        size or the split: row t always runs on row t of the table.
+
+        ``engine="fused"`` runs the program through the kernels
+        (:mod:`~qubism_torch.run.traj_fused`): mixture noise realized into
+        gate operands on the host, amplitude/phase damping as MCWF sites
+        chosen on the device, mid-circuit measurement, reset and
+        feed-forward too. It raises
+        :class:`~qubism_torch.run.traj_fused.FusedUnsupported` for reference
+        sqrt-Born mode, >12-qubit mid-circuit events, >2-target prims and 2q
+        state-dependent Kraus; its random stream is its own (statistically
+        equivalent, not bit-identical to this engine's). ``engine="auto"``
+        tries fused and takes this engine on ``FusedUnsupported``."""
+        if engine not in ("vmap", "fused", "auto"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if engine in ("fused", "auto") and not return_states and mesh is None:
+            from .traj_fused import FusedUnsupported, run_vals_fused
+
+            try:
+                return run_vals_fused(self, ntraj, seed=seed)
+            except FusedUnsupported:
+                if engine == "fused":
+                    raise
+        elif engine == "fused":
+            raise ValueError("engine='fused' does not support return_states or mesh")
+
+        def to_host(u):
+            # each device's share to the host as its batch ends: the final
+            # states are dropped here unless asked for, so device memory
+            # does not grow with ntraj
+            cregs, psi = self._run_batch(u)
+            return ({c: v.cpu().numpy() for c, v in cregs.items()},
+                    psi.cpu() if return_states and psi is not None else None)
+
+        parts = self._batches(ntraj, seed, uniforms, mesh, max_live_words, to_host)
+        out = {c: np.concatenate([p[0][c] for p in parts])[:ntraj] for c in self.creg_names}
+        if not return_states:
+            return out
+        return out, (torch.cat([p[1] for p in parts])[:ntraj] if self.n else None)
+
+    # -- Monte-Carlo observables --------------------------------------------
+
+    def _mc_estimate(self, values, ntraj: int, seed, uniforms, mesh):
+        """Shared Monte-Carlo scaffolding: ``values(final states)`` -> (T, k)
+        per-trajectory values of each batch; returns (mean, stderr) over the
+        trajectories, (k,) arrays (stderr 0 at one trajectory)."""
+        parts = self._batches(ntraj, seed, uniforms, mesh, None,
+                              lambda u: values(self._run_batch(u)[1]))
+        vals = np.concatenate(parts)[:ntraj].astype(np.float64)
+        mean = vals.mean(axis=0)
+        stderr = (vals.std(axis=0, ddof=1) / np.sqrt(ntraj) if ntraj > 1
+                  else np.zeros_like(mean))
+        return mean, stderr
+
+    def expectation(self, pauli: str, ntraj: int, seed: int | None = None,
+                    uniforms=None, mesh=None):
+        """Monte-Carlo ``<P>`` over ``ntraj`` noisy trajectories: returns
+        ``(mean, stderr)``. The estimator is the trajectory average of the
+        FINAL-state expectation; mid-circuit measurement and feed-forward
+        run per trajectory exactly as in :meth:`run_vals`."""
+        return self.expectations([pauli], ntraj, seed=seed, uniforms=uniforms, mesh=mesh)[0]
+
+    def expectations(self, paulis, ntraj: int, seed: int | None = None,
+                     uniforms=None, mesh=None):
+        """Monte-Carlo ``<P>`` for MANY Pauli strings on one run: all strings
+        reduce on each trajectory's final state. Returns a list of (mean,
+        stderr) pairs in input order."""
+        paulis = [M._check_pauli(p, self.n) for p in paulis]
+        mean, stderr = self._mc_estimate(
+            lambda psi: T.pauli_values(psi, self.n, paulis).astype(np.float32),
+            ntraj, seed, uniforms, mesh)
+        return [(float(m), float(s)) for m, s in zip(mean, stderr)]
+
+    def expectation_sum(self, terms, ntraj: int, seed: int | None = None,
+                        uniforms=None, mesh=None):
+        """Monte-Carlo ``<H>`` for a Pauli sum ``terms = [(coef, pauli),
+        ...]``: returns ``(mean, stderr)``. The per-trajectory energy is
+        summed first, so the stderr is the shot noise of the energy itself,
+        correlations between terms included."""
+        terms = [(float(c), M._check_pauli(p, self.n)) for c, p in terms]
+        coefs = np.asarray([c for c, _ in terms])
+
+        def energy(psi):
+            vals = T.pauli_values(psi, self.n, [p for _, p in terms]).astype(np.float32)
+            return (vals.astype(np.float64) @ coefs)[:, None]
+
+        mean, stderr = self._mc_estimate(energy, ntraj, seed, uniforms, mesh)
+        return float(mean[0]), float(stderr[0])
+
+    def counts(self, ntraj: int, seed: int | None = None, uniforms=None,
+               mesh=None, engine: str = "vmap"):
+        """Joint classical-register outcome histogram over trajectories:
+        {"c=0110 d=1": count}, bits rendered LSB-first like the
+        reference's CReg Show."""
+        vals = self.run_vals(ntraj, seed=seed, uniforms=uniforms, mesh=mesh, engine=engine)
+        rows = []
+        for t in range(ntraj):
+            rows.append(" ".join(f"{c}={CReg.of(vals[c][t])}" for c in self.creg_names))
+        return collections.Counter(rows)
 
 
 class DensityProgram:

@@ -2,8 +2,10 @@
 the four execution modes, unfused registers, ``--dtype``, the REPL
 transcripts of tests/test_cli.py (the same input lines to both ``Repl``s,
 the same output text up to the sign of printed zeros), the atomic failed
-line with the kept state tensor unchanged bit for bit, and each flag that is
-not ported yet exiting 2 and naming itself."""
+line with the kept state tensor unchanged bit for bit, each flag that is
+not ported yet exiting 2 and naming itself, and trajectory mode (``--noise``,
+``--trajectories``, ``--traj-engine``, ``--observable`` as mean +- stderr,
+``--mesh``) against the JAX CLI's text and messages."""
 
 import io
 import os
@@ -138,27 +140,115 @@ def test_dtype_flag(capsys):
 # -- flags that are not ported yet -------------------------------------------------
 
 
+def counts_block(text):
+    """(header line, {row: count}, the lines after the block) of a trajectory
+    run's output."""
+    lines = text.splitlines()
+    head = lines[0]
+    rows = {}
+    i = 1
+    while i < len(lines) and lines[i].startswith("  "):
+        row, _, c = lines[i].strip().rpartition(": ")
+        rows[row] = int(c)
+        i += 1
+    return head, rows, lines[i:]
+
+
+#: named None: the trajectory flags, ported since; the case runs both CLIs
+#: and holds the port's output against the JAX CLI's (the counts come from
+#: each package's own random stream, so the rows are held by their format
+#: and total, and the text otherwise word for word)
 @pytest.mark.parametrize("argv,named", [
     (["--backend", "stabilizer"], "--backend stabilizer"), (["--backend", "mps"], "--backend mps"),
-    (["--noise", "dep:0.1"], "--noise without --backend density"),
-    (["--trajectories", "16"], "--trajectories"), (["--traj-engine", "fused"], "--traj-engine"),
+    (["--noise", "dep:0.1"], None),
+    (["--trajectories", "16"], None), (["--traj-engine", "fused"], None),
     (["--chi", "8"], "--chi"), (["--trunc-budget", "1e-6"], "--trunc-budget"),
     (["--max-chi", "64"], "--max-chi"),
-    (["--backend", "density", "--trajectories", "4"], "--trajectories")])
+    (["--backend", "density", "--trajectories", "4"], None)])
 def test_unported_flags_exit_2(argv, named, capsys):
     path = os.path.join(EXAMPLES, "teleportation.qasm")
-    assert tcli.main([path] + argv) == 2
-    captured = capsys.readouterr()
-    assert captured.err == f"qubism: {named}: not ported yet\n" and captured.out == ""
     jcli.build_arg_parser().parse_args([path] + argv)  # the JAX CLI knows the flag
+    trc = tcli.main([path, "--seed", "3"] + argv)
+    ours = capsys.readouterr()
+    if named is not None:
+        assert trc == 2
+        assert ours.err == f"qubism: {named}: not ported yet\n" and ours.out == ""
+        return
+    jrc = jcli.main([path, "--seed", "3"] + argv)
+    theirs = capsys.readouterr()
+    assert trc == jrc and ours.err == theirs.err == ""
+    if not ours.out.startswith("Counts over"):
+        assert ours.out == theirs.out  # no trajectory run, or a refusal
+        return
+    (th, trows, ttail), (jh, jrows, jtail) = counts_block(ours.out), counts_block(theirs.out)
+    assert th == jh and ttail == jtail == ["Done."]
+    want = int(argv[1]) if argv[0] == "--trajectories" else 512
+    assert sum(trows.values()) == sum(jrows.values()) == want
+    assert all(re.fullmatch(r"c0=[01] c1=[01] c2=[01]", r) for r in trows)
 
 
-def test_eval_file_refuses_unported_engines():
-    for kw, named in (({"backend": "mps"}, "--backend mps"),
-                      ({"noise": "dep:0.1"}, "--noise without --backend density")):
-        out = io.StringIO()
-        assert tcli.eval_file("<t>", source="qreg q[1];", out=out, **kw) == 2
-        assert out.getvalue() == f"qubism: {named}: not ported yet\n"
+# -- trajectory mode -------------------------------------------------------------
+
+
+NO_CREG = "qreg q[2];\nU(0.3, 0, 0) q[0];\nCX q[0], q[1];\n"
+
+
+@pytest.mark.parametrize("src,kw", [
+    (BELL, dict(noise="dep:0.1", compile_mode=True)),
+    (BELL, dict(noise="dep:0.1")),
+    (BELL + "creg c[2];\nmeasure q -> c;\n", dict(noise="dep:0.1", mesh=2, traj_engine="fused")),
+    (BELL + "creg c[2];\nmeasure q -> c;\n", dict(noise="nope:0.1")),
+    (BELL + "creg c[2];\nmeasure q -> c;\n", dict(noise="dep:0.1@r[0]")),
+    (BELL + "creg c[2];\nmeasure q[0] -> c[0];\nmeasure q[0] -> c[1];\nU(0.1,0,0) q[1];\n",
+     dict(noise="dep:0.1", traj_engine="fused")),
+    (BELL + "creg c[2];\nmeasure q -> c;\n", dict(noise="dep:0.1", observables=["ZZZ"])),
+], ids=["compile", "no creg", "fused mesh", "unknown channel", "bad target", "fused refuses",
+        "bad observable"])
+def test_trajectory_mode_messages_match_jax(src, kw, tmp_path):
+    f = tmp_path / "t.qasm"
+    f.write_text(src)
+    (trc, tout), (jrc, jout) = eval_both(f, seed=1, **kw)
+    assert trc == jrc != 0
+    if "observables" in kw:  # the counts come first, each engine's own
+        tout, jout = tout.splitlines()[-1], jout.splitlines()[-1]
+    assert tout == jout
+
+
+def test_trajectory_observables_and_mesh(tmp_path):
+    f = tmp_path / "t.qasm"
+    f.write_text(NO_CREG)
+    (trc, tout), (jrc, jout) = eval_both(f, seed=2, noise="dep:0.05", trajectories=64,
+                                         observables=["ZZ", "xi"])
+    assert trc == jrc == 0
+    pat = r"<ZZ> = -?\d\.\d{6} \+- \d\.\d{6}\n<XI> = -?\d\.\d{6} \+- \d\.\d{6}\nDone\.\n"
+    assert re.fullmatch(pat, tout) and re.fullmatch(pat, jout)
+    # the mesh splits the batch: the same text
+    buf = io.StringIO()
+    assert tcli.eval_file(str(f), seed=2, noise="dep:0.05", trajectories=64,
+                          observables=["ZZ", "xi"], mesh=4, out=buf) == 0
+    assert buf.getvalue() == tout
+    # the fused engine prints the same block as the vmapped one
+    path = os.path.join(EXAMPLES, "teleportation.qasm")
+    for engine in ("fused", "auto"):
+        buf = io.StringIO()
+        assert tcli.eval_file(path, seed=1, noise="dep:0.01", trajectories=64,
+                              traj_engine=engine, out=buf) == 0
+        head, rows, tail = counts_block(buf.getvalue())
+        assert head == "Counts over classical registers (64 trajectories):"
+        assert sum(rows.values()) == 64 and tail == ["Done."]
+
+
+def test_eval_file_refuses_unported_engines(tmp_path):
+    out = io.StringIO()
+    assert tcli.eval_file("<t>", source="qreg q[1];", out=out, backend="mps") == 2
+    assert out.getvalue() == "qubism: --backend mps: not ported yet\n"
+    # --noise is ported: a program with no creg and no observable is refused
+    # as the JAX CLI refuses it
+    f = tmp_path / "t.qasm"
+    f.write_text("qreg q[1];")
+    (trc, tout), (jrc, jout) = eval_both(f, noise="dep:0.1")
+    assert trc == jrc == 2 and tout == jout
+    assert tout.startswith("qubism: trajectory mode reports classical-register counts")
 
 
 def test_every_flag_of_the_jax_cli_is_parsed():

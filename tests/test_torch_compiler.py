@@ -237,7 +237,8 @@ def test_cli_compile_flags(tmp_path, capsys):
     assert tcli.main([path, "--compile", "--observable", "ZZ"]) == 2  # 5 qubits declared
     assert "qubism: --observable: Pauli string must be 5 chars" in capsys.readouterr().out
     assert tcli.main([path, "--compile", "--trajectories", "4"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert capsys.readouterr().out == ("qubism: --noise/--trajectories is its own execution "
+                                       "mode; drop --compile\n")
 
 
 def test_compile_shots_follow_born_rule():

@@ -328,7 +328,12 @@ def test_lindblad_evolve_matches_jax(case):
 
 
 def test_trajectory_programs_are_not_ported():
-    with pytest.raises(NotImplementedError, match="trajectories.py"):
-        TD.lindblad_step_program([(1.0, "Z")], [(0.5, _SM, 0)], 0.1)
-    with pytest.raises(NotImplementedError, match="trajectories.py"):
-        TD.lindblad_mcwf(1, [], [(1.0, "Z")], [(0.5, _SM, 0)], 1.0, 4, 8)
+    """Ported since: the two trajectory functions run (their parity with the
+    JAX package is in tests/test_torch_trajectories.py); the step program
+    has the JAX package's shape and a one-qubit decay keeps |0> at rest."""
+    step = TD.lindblad_step_program([(1.0, "Z")], [(0.5, _SM, 0)], 0.1)
+    want = JD.lindblad_step_program([(1.0, "Z")], [(0.5, _SM, 0)], 0.1)
+    assert [type(x).__name__ for x in step] == [type(x).__name__ for x in want]
+    states, est = TD.lindblad_mcwf(1, [], [(1.0, "Z")], [(0.5, _SM, 0)], 1.0, 4, 8,
+                                   observables=["Z"])
+    assert states.shape == (8, 2) and est == [(pytest.approx(1.0), pytest.approx(0.0))]

@@ -310,10 +310,15 @@ def test_main_flags(capsys, monkeypatch):
     path = os.path.join(EXAMPLES, "rippleCarryAdder.qasm")
     assert tcli.main([path, "--seed", "1", "--dump-state"]) == 0
     assert "CReg ans[5] = 00001" in capsys.readouterr().out
-    for argv in ([path, "--backend", "mps"], [path, "--trajectories", "8"],
-                 [path, "--noise", "dep:0.1"], [path, "--no-such-flag"]):
+    for argv in ([path, "--backend", "mps"], [path, "--no-such-flag"]):
         assert tcli.main(argv) == 2
         assert "not ported yet" in capsys.readouterr().err
+    # trajectory mode is ported: counts over the classical registers
+    for argv, ntraj in (([path, "--trajectories", "8"], 8), ([path, "--noise", "dep:0.1"], 512)):
+        assert tcli.main(argv) == 0
+        out = capsys.readouterr().out
+        assert out.startswith(f"Counts over classical registers ({ntraj} trajectories):")
+        assert out.endswith("Done.\n")
     with pytest.raises(SystemExit, match="complex128 amplitudes are not supported"):
         tcli.main([path, "--dtype", "complex128"])
     assert tcli.main([path, "--observable", "ZZ"]) == 2  # the adder declares 10 qubits

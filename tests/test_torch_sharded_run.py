@@ -125,8 +125,9 @@ def test_mesh_flag_errors(tmp_path, capsys, monkeypatch):
     assert capsys.readouterr().out == "<ZZII> = 1.000000\nDone.\n"
     assert tcli.main([str(f), "--mesh", "2", "--observable", "ZZ"]) == 2
     assert "qubism: --observable: Pauli string must be 4 chars" in capsys.readouterr().out
-    assert tcli.main([str(f), "--mesh", "2", "--traj-engine", "vmap"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    # --traj-engine alone starts no trajectory run (as in the JAX CLI)
+    assert tcli.main([str(f), "--mesh", "2", "--traj-engine", "vmap"]) == 0
+    assert capsys.readouterr().out == "Done.\n"
     assert tcli.main([str(f), "--mesh", "3"]) == 2
     assert "power of two" in capsys.readouterr().out
     # on CUDA, a mesh of more GPUs than the machine has exits 2: no fallback
