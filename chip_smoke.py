@@ -17,7 +17,7 @@ target view, diag beside one ``mul_`` by its 2^n diagonal, each library
 call first held against the plain version; a lane or diag call prepares
 and uploads its operands, so
 their lines also give the kernel on operands prepared once). Then it drives
-eleven paths, each with the launch counters set to 0 just before it and read
+twelve paths, each with the launch counters set to 0 just before it and read
 just after (a ``phase <path>: diag launches by (factors, widest k)`` line
 gives the shapes of its diag passes). The device-operand modes of K1, K4
 and K3 (``gate_dev``, ``layer1q_dev``, ``lane_dev``: the matrix read from
@@ -89,7 +89,25 @@ at n = 28 (``time n=28 gate dev`` etc.). The paths:
   and its ms per trajectory at n = 26 beside the fused engine's at 26 and
   28 (its peak again held to one batch's); ``eval_file`` in trajectory
   mode (teleportation, ``--observable ZZI`` as mean +- stderr); and
-  ``lindblad_mcwf`` at n = 10 against ``lindblad_evolve`` within 4 stderr.
+  ``lindblad_mcwf`` at n = 10 against ``lindblad_evolve`` within 4 stderr;
+* the stabilizer backend (plain torch, no kernel), at the JAX package's
+  bench.py shapes: S1 ``StabilizerSim(1000)`` with H and a CX chain (the
+  planes against the same chain on the CPU word for word, 8192 shots all
+  equal with a fair split, ``measure_qubits(range(1000))`` in 2 rounds,
+  ``<Z0 Z999>`` and ``<X^1000>`` = +1); S2 GHZ-300 under
+  ``depolarizing:0.001``, 8192 trajectories on Pauli frames (the clean
+  fraction against (1 - 2p/3)^599, the clean split's chi2); S3
+  ``repetition_memory(501, 8, 0.003, 4096)`` on 1001 qubits and
+  ``repetition_memory(5, 8, 0.05, 4096)`` (consistent syndromes, the
+  logical rate against its law); S4 a 1000-qubit program with a
+  mid-circuit measurement and an ``if`` correction of every qubit under
+  ``bitflip:0.01``, 64 trajectories on the tableau batch (the mean number
+  of ones against the closed form of :func:`fallback_law`, and noiseless:
+  all zero); and the CLI (``examples/errorCorrection.qasm`` and GHZ-1000
+  with 8192 shots). Each of S1-S4 prints its warm seconds (best of 3 after
+  a warm-up), its torch ops in total and per gate or layer step (the
+  card's own count of kernels from ``torch.profiler`` beside S1's chain),
+  its synchronising calls, measurement rounds and peak.
 
 The butterfly kernel (K6) is held against its plain version at 2^20 and
 2^30 amplitudes in 2, 4 and 16 banks and timed at 2^28 beside one
@@ -170,6 +188,15 @@ N_TRAJ, TRAJ_T, TRAJ_P, TRAJ_AD = 28, 256, 0.002, 0.05
 N_TRAJ_FF, TRAJ_FF_T = 26, 64
 N_TRAJ_VMAP, TRAJ_VMAP_T, N_TRAJ_VMAP_WIDE, TRAJ_VMAP_WIDE_T = 16, 512, 26, 8
 N_LINDBLAD, LINDBLAD_T = 10, 256
+#: the stabilizer path, at the JAX package's benchmark shapes (bench.py):
+#: S1 the tableau's width and shots; S2 the frames' GHZ width, trajectories
+#: and depolarizing rate; S3 the QEC memory's distance, rounds, bit-flip
+#: rate and trajectories; S4 the tableau batch's width, trajectories and
+#: bit-flip rate
+N_STAB, STAB_SHOTS = 1000, 8192
+N_FRAMES, FRAMES_T, FRAMES_P = 300, 8192, 0.001
+QEC_D, QEC_ROUNDS, QEC_P, QEC_T = 501, 8, 0.003, 4096
+N_FALLBACK, FALLBACK_T, FALLBACK_P = 1000, 64, 0.01
 #: device memory the fused engine may take beside one state and its batch's
 #: operands (the lane operand, the sample's row masses, small tables); and
 #: the most the vmapped engine's peak may grow from one batch to many
@@ -203,6 +230,8 @@ PATH_KERNELS = {
     "variational": ("gate", "diag", "lane", "layer1q"),
     "dynamics": ("diag", "lane", "layer1q"),
     "trajectories": ("gate", "lane", "layer1q"),
+    # plain torch, as the reference's stabilizer engine is plain XLA
+    "stabilizer": (),
 }
 #: the port's kernels of the variational path, by their names in the
 #: library (device time of a profiled engine call is split by these)
@@ -2379,6 +2408,221 @@ def run_trajectories_path():
         FusedTrajectories.sync_debug = None
 
 
+def stab_run(label, fn, steps, what):
+    """``fn()`` once as the warm-up, with its torch ops (each about one
+    launch on the card), host reads and measurement rounds counted and its
+    peak taken, then three timed runs: (the last output, the counts)."""
+    from qubism_torch.stabilizer import tableau as Tb
+    from qubism_torch.utils.profiling import count_ops
+
+    Tb.reset_stats()
+    (out, ops), peak = peak_gib(lambda: count_ops(fn))
+    info = {"ops": ops, "syncs": Tb.stats["syncs"], "rounds": Tb.stats["rounds"], "peak": peak}
+    secs = []
+    for _ in range(3):
+        out, s = timed_call(fn)
+        secs.append(s)
+    info["secs"] = min(secs)
+    log(f"stabilizer {label}: warm {min(secs):.4f} s (best of 3 after one warm-up: "
+        f"{', '.join(f'{s:.4f}' for s in secs)}), torch ops {ops} ({ops / steps:.1f} per "
+        f"{what} step, {steps} steps), synchronising calls {info['syncs']}, measurement "
+        f"rounds {info['rounds']}, peak {peak:.3f} GiB")
+    return out, info
+
+
+def device_launches(fn):
+    """The kernels and copies the card ran for ``fn()``, by torch.profiler;
+    None off the card or when it traced nothing."""
+    import torch
+
+    if DEV != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return sum(1 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) or None
+
+
+def stab_parse(lines):
+    from qubism_torch.qasm.parser import parse_openqasm
+
+    return parse_openqasm("<chip_smoke>.qasm", "\n".join(lines))
+
+
+def stab_ghz_law(label, bits, p, sites, ntraj):
+    """A noisy GHZ on frames: the clean fraction within 3 sigma + 0.005 of
+    (1 - 2p/3)^sites, and the clean 0/1 split's chi2 < 16."""
+    cleanmask = (bits == bits[:, :1]).all(axis=1)
+    clean = float(cleanmask.mean())
+    want = (1 - 2 * p / 3) ** sites
+    sig = (want * (1 - want) / ntraj) ** 0.5
+    n0 = int((cleanmask & (bits[:, 0] == 0)).sum())
+    n1 = int(cleanmask.sum()) - n0
+    chi2 = (n0 - n1) ** 2 / max(n0 + n1, 1)
+    log(f"stabilizer {label}: clean fraction {clean:.4f} against (1 - 2p/3)^{sites} = "
+        f"{want:.4f} (3 sigma {3 * sig:.4f}), clean split {n0}/{n1} chi2 {chi2:.2f}")
+    check(abs(clean - want) < 3 * sig + 0.005, f"{label}: clean fraction {clean} vs {want}")
+    check(chi2 < 16.0, f"{label}: clean split chi2 {chi2}")
+
+
+def fallback_law(n, p):
+    """The expected number of ones in the final register of the S4 program
+    (GHZ-n, measure q[0] -> m, ``if (m == 1)`` X on every qubit, measure
+    all) under bit flips p after every gate on each of its qubits. With
+    q(j) = (1 - (1-2p)^j) / 2, the odd-parity chance of j independent
+    flips: q[k] ^ q[0] before the correction is the parity of k + 2 flips
+    (the flip of q[0] after CX(0,1), of q[j] after CX(j-1,j) for j <= k,
+    carried down the chain, and of q[k] after CX(k,k+1)), n for the last
+    qubit; m is a fair coin independent of them, and the correction's X
+    adds one more flip where m = 1. So P(f_0 = 1) = p/2 and P(f_k = 1) =
+    (q(k+2) + q(k+3)) / 2 (k < n-1), (q(n) + q(n+1)) / 2 (k = n-1)."""
+    def q(j):
+        return (1 - (1 - 2 * p) ** j) / 2
+
+    return p / 2 + sum((q(k + 2) + q(k + 3)) / 2 for k in range(1, n - 1)) + (q(n) + q(n + 1)) / 2
+
+
+def run_stabilizer_path():
+    """The stabilizer backend at the JAX package's benchmark shapes: S1 a
+    tableau (StabilizerSim(1000): GHZ chain against the CPU run word for
+    word, 8192 shots, the register read in 2 rounds, two expectations), S2
+    final-measure frames (GHZ-300 under depolarizing:0.001, 8192
+    trajectories), S3 the QEC memory (d = 501, 8 rounds, 4096 trajectories,
+    and d = 5 at p = 0.05), S4 the tableau batch (a 1000-qubit program with
+    a mid-circuit measurement and an ``if`` correction under bitflip:0.01,
+    64 trajectories, against its closed-form law, and noiseless), and the
+    CLI (errorCorrection.qasm, GHZ-1000 with 8192 shots). No kernel of K1-K6
+    runs here: the reference's stabilizer engine is plain XLA."""
+    import numpy as np
+    import torch
+
+    from qubism_torch.cli import eval_file
+    from qubism_torch.core.gates import Prim
+    from qubism_torch.models.qec import repetition_memory
+    from qubism_torch.stabilizer import (StabilizerSim, StabilizerTrajectoryProgram,
+                                         apply_prims, identity_tableau, planes_from_tableau)
+    from qubism_torch.stabilizer import tableau as Tb
+
+    h = np.array([[1, 1], [1, -1]], dtype=np.complex128) / np.sqrt(2)
+    cx = np.eye(4, dtype=np.complex128)[[0, 1, 3, 2]]
+
+    # S1: the tableau (bench.py:580-598)
+    n = N_STAB
+    prims = [Prim(h, (0,))] + [Prim(cx, (q, q + 1)) for q in range(n - 1)]
+    sim, _ = stab_run(f"S1 chain n={n}", lambda: StabilizerSim(n, seed=0).apply(prims), n, "gate")
+    ref = apply_prims(identity_tableau(n, torch.device("cpu")), prims)
+    same = all(np.array_equal(a, b) for a, b in zip(planes_from_tableau(sim.tab),
+                                                    planes_from_tableau(ref)))
+    kern = device_launches(lambda: StabilizerSim(n, seed=0).apply(prims))
+    log(f"stabilizer S1 chain: planes equal to the CPU run word for word: {same}; the card ran "
+        + ("not traced" if kern is None else f"{kern} kernels and copies ({kern / n:.1f} a gate)"))
+    check(same, "S1: the chain's planes differ from the CPU run")
+
+    def sample():
+        sim._support = None            # the host elimination each time
+        return sim.sample(STAB_SHOTS)
+
+    b, _ = stab_run(f"S1 sample {STAB_SHOTS} shots", sample, 1, "sample")
+    frac = float(b[:, 0].mean())
+    log(f"stabilizer S1 sample: rows all equal {bool((b == b[:, :1]).all())}, "
+        f"mean {frac:.4f} (|mean - 0.5| < 0.0166)")
+    check(b.shape == (STAB_SHOTS, n) and (b == b[:, :1]).all(), "S1: sample rows differ")
+    check(abs(frac - 0.5) < 0.0166, f"S1: sample mean {frac}")
+
+    def measure():
+        fresh = StabilizerSim(n, seed=1)
+        fresh.tab = sim.tab
+        return fresh.measure_qubits(range(n))
+
+    outs, info = stab_run(f"S1 measure_qubits({n})", measure, n, "qubit")
+    check(len(set(outs)) == 1, "S1: GHZ outcomes differ")
+    check(info["rounds"] == 2, f"S1: {info['rounds']} readout rounds, not 2")
+    zz = "Z" + "I" * (n - 2) + "Z"
+    ev, _ = stab_run("S1 expectations", lambda: (sim.expectation(zz), sim.expectation("X" * n)),
+                     2, "expectation")
+    log(f"stabilizer S1: <Z0 Z{n - 1}> = {ev[0]}, <X^{n}> = {ev[1]}")
+    check(ev == (1.0, 1.0), f"S1: expectations {ev}")
+
+    # S2: final-measure frames (bench.py:963-1000)
+    n, T, p = N_FRAMES, FRAMES_T, FRAMES_P
+    ghz = ([f"qreg q[{n}]; creg c[{n}];", "U(1.5707963267948966, 0, 3.141592653589793) q[0];"]
+           + [f"CX q[{q}], q[{q + 1}];" for q in range(n - 1)])
+    prog = StabilizerTrajectoryProgram(stab_parse(ghz + ["measure q -> c;"]),
+                                       noise=f"depolarizing:{p}")
+    vals, _ = stab_run(f"S2 frames ghz{n} x {T}", lambda: prog.run_vals(T, seed=0)["c"], n, "gate")
+    log(f"stabilizer S2: used_frames {prog.used_frames}")
+    check(prog.used_frames, "S2: the frame executor was not used")
+    stab_ghz_law(f"S2 ghz{n}", vals, p, 2 * n - 1, T)
+
+    # S3: the QEC memory (bench.py:935-961)
+    d, rounds, p, T = QEC_D, QEC_ROUNDS, QEC_P, QEC_T
+    res, _ = stab_run(f"S3 qec d={d} ({2 * d - 1} qubits) x {T}",
+                      lambda: repetition_memory(d, rounds, p, T, seed=0), 5 * rounds + 1, "layer")
+    for r, tol in ((res, 0.003), (repetition_memory(5, rounds, 0.05, T, seed=1), 0.005)):
+        sig = (r.analytic * (1 - r.analytic) / T) ** 0.5
+        log(f"stabilizer S3 d={r.d} p={r.p}: logical rate {r.logical_rate:.5f} against "
+            f"{r.analytic:.5f} (5 sigma {5 * sig:.5f} + {tol}), syndromes consistent "
+            f"{r.syndrome_consistent}")
+        check(r.syndrome_consistent, f"S3 d={r.d}: syndromes inconsistent")
+        check(abs(r.logical_rate - r.analytic) < 5 * sig + tol,
+              f"S3 d={r.d}: rate {r.logical_rate} vs {r.analytic}")
+
+    # S4: the tableau batch (feed-forward)
+    n, T, p = N_FALLBACK, FALLBACK_T, FALLBACK_P
+    lines = ghz[:]
+    lines[0] = f"qreg q[{n}]; creg m[1]; creg f[{n}];"
+    lines = lines[:2] + [f"CX q[{k}], q[{k + 1}];" for k in range(n - 1)]
+    lines += ["measure q[0] -> m[0];",
+              "if (m == 1) U(3.141592653589793, 0, 3.141592653589793) q;", "measure q -> f;"]
+    prog = StabilizerTrajectoryProgram(stab_parse(lines), noise=f"bitflip:{p}")
+    vals, _ = stab_run(f"S4 tableau batch n={n} x {T}", lambda: prog.run_vals(T, seed=0),
+                       2 * n, "gate")
+    check(not prog.used_frames, "S4: frames were used for a feed-forward program")
+    m, f = vals["m"][:, 0], vals["f"]
+    ones = f.sum(axis=1)
+    want = fallback_law(n, p)
+    se = float(ones.std(ddof=1) / np.sqrt(T))
+    log(f"stabilizer S4: used_frames {prog.used_frames}, m = 1 in {int(m.sum())} of {T}, "
+        f"ones in f {ones.mean():.2f} +- {se:.2f} against the law's {want:.2f}, f[0] = 1 "
+        f"only where m = 1: {bool((f[:, 0] <= m).all())}")
+    check((f[:, 0] <= m).all(), "S4: f[0] = 1 where m = 0")
+    check(abs(ones.mean() - want) < 5 * se + 1.0, f"S4: ones {ones.mean()} vs {want}")
+    clean = StabilizerTrajectoryProgram(stab_parse(lines))
+    cv = clean.run_vals(T, seed=1)
+    log(f"stabilizer S4 noiseless: f all zero {bool((cv['f'] == 0).all())}, m = 1 in "
+        f"{int(cv['m'].sum())} of {T}")
+    check((cv["f"] == 0).all() and 0 < cv["m"].mean() < 1, "S4 noiseless: wrong outcomes")
+
+    # the CLI
+    Tb.reset_stats()
+    out = io.StringIO()
+    seen = {}
+    rc = eval_file(os.path.join(EXAMPLES, "errorCorrection.qasm"), seed=0, backend="stabilizer",
+                   dump_state=True, out=out, inspect=lambda st: seen.update(st[1]))
+    got = {k: str(v) for k, v in seen.items()}
+    log(f"stabilizer cli errorCorrection.qasm: rc {rc}, cregs {got}")
+    check(rc == 0 and got == {"c": "000", "syn": "10"} and "Stabilizers of q(x)a" in out.getvalue(),
+          f"cli errorCorrection: rc {rc}, {got}")
+    n = N_STAB
+    src = "\n".join(["qreg q[%d];" % n, "U(pi/2, 0, pi) q[0];"]
+                    + [f"CX q[{k}], q[{k + 1}];" for k in range(n - 1)]) + "\n"
+    out = io.StringIO()
+    (rc, secs) = timed_call(lambda: eval_file("<ghz>.qasm", source=src, seed=2, shots=STAB_SHOTS,
+                                              backend="stabilizer", out=out))
+    rows = {ln.strip().rpartition(": ")[0]: int(ln.rpartition(": ")[2])
+            for ln in out.getvalue().splitlines() if ln.startswith("  |")}
+    n0 = rows.get("|" + "0" * n + ">", 0)
+    n1 = rows.get("|" + "1" * n + ">", 0)
+    log(f"stabilizer cli ghz{n} --shots {STAB_SHOTS}: rc {rc}, {secs:.3f} s, {n0}/{n1}, "
+        f"other rows {len(rows) - bool(n0) - bool(n1)}")
+    check(rc == 0 and n0 + n1 == STAB_SHOTS and (n0 - n1) ** 2 / STAB_SHOTS < 16,
+          f"cli ghz{n}: rc {rc}, {n0}/{n1}")
+    log(f"stabilizer host reads in the CLI runs: {Tb.stats['syncs']}")
+
+
 #: seconds per trajectory of the timed runs, by engine and program
 TRAJ_TIMES = {}
 
@@ -2506,7 +2750,7 @@ def main() -> int:
              "mesh path": run_mesh_path, "observables": run_observables_path,
              "density path": run_density_path, "mesh density path": run_mesh_density_path,
              "variational": run_variational_path, "dynamics": run_dynamics_path,
-             "trajectories": run_trajectories_path}
+             "trajectories": run_trajectories_path, "stabilizer": run_stabilizer_path}
 
     def since(counts, before):
         return {k: v - before.get(k, 0) for k, v in counts.items() if v > before.get(k, 0)}

@@ -11,7 +11,9 @@ Two surfaces, as in the JAX package (``import qubism_torch as qt``):
 2. the **QASM path**: ``python -m qubism_torch file.qasm`` (with
    ``--compile`` for the compiled engine, ``--noise`` for noisy
    trajectories (:class:`TrajectoryProgram`), ``--backend density --noise``
-   for the exact density engine), and the REPL with no file.
+   for the exact density engine, ``--backend stabilizer`` for Clifford
+   circuits at 1000+ qubits on the tableau engine, :class:`StabilizerSim`
+   and :class:`StabilizerTrajectoryProgram`), and the REPL with no file.
 
 Both run on one NVIDIA Hopper GPU through hand-written CUDA kernels for the
 state-vector passes (ops/kernels.py, csrc/). Importing the package imports
@@ -57,5 +59,6 @@ from .run.noisy import (  # noqa: F401
     TrajectoryProgram,
     parse_noise_spec,
 )
+from .stabilizer import StabilizerSim, StabilizerTrajectoryProgram  # noqa: F401
 
 __version__ = "0.1.0"

@@ -14,10 +14,13 @@ Flags: ``--seed``, ``--shots``, ``--dump-state``, ``--dtype``, ``--compile``,
 counts over the classical registers, ``--observable`` as mean +- stderr,
 ``--mesh D`` splitting the batch), ``--backend density`` with ``--noise``
 (the exact density engine, on one device or over ``--mesh D``),
+``--backend stabilizer`` (the Clifford tableau engine: ``--shots``,
+``--dump-state``, ``--observable``; with ``--noise`` / ``--trajectories``
+noisy Clifford trajectories on Pauli frames or tableaux),
 ``--reference-compat``, ``-I``, ``--include-base`` and ``--verbose``. The
 flags of the JAX package's CLI whose engines are not ported yet are parsed
-and exit with code 2 and "not ported yet": ``--backend stabilizer|mps``,
-``--chi``, ``--trunc-budget`` and ``--max-chi``.
+and exit with code 2 and "not ported yet": ``--backend mps``, ``--chi``,
+``--trunc-budget`` and ``--max-chi``.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ _UNPORTED_FLAGS = {
 
 def _unported(args) -> str | None:
     """The first flag of ``args`` that names an engine not ported yet."""
-    if args.backend in ("stabilizer", "mps"):
+    if args.backend == "mps":
         return f"--backend {args.backend}"
     for flag in _UNPORTED_FLAGS:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
@@ -76,11 +79,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    choices=["statevector", "stabilizer", "mps", "density"],
                    default="statevector",
                    help="simulation engine: the dense state-vector engine "
-                        "(default; with --noise it runs noisy trajectories) "
+                        "(default; with --noise it runs noisy trajectories), "
+                        "the Clifford stabilizer-tableau engine (1000+ "
+                        "qubits; with --noise, Pauli-channel trajectories) "
                         "or the exact density-matrix engine "
                         "(open-system: combine with --noise; 4^n amplitudes, "
                         "n <= 14 on one device, shard past that with "
-                        "--mesh). stabilizer and mps are not ported yet")
+                        "--mesh). mps is not ported yet")
     p.add_argument("--noise", metavar="SPEC", default=None,
                    help="circuit-level noise model, e.g. 'depolarizing:0.01' "
                         "or 'ad:0.05,pd:0.02' (channels: depolarizing, "
@@ -174,12 +179,15 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
     declared qubits; each prints ``<P> = value``. ``backend="density"`` runs
     the exact density engine (:class:`~qubism_torch.run.noisy.DensityProgram`)
     under the ``noise`` spec, on one device or sharded over ``mesh``;
-    ``inspect`` then sees ``(rho, cregs)``. ``noise`` or ``trajectories`` on
-    the state-vector backend runs ``trajectories`` noisy trajectories
+    ``inspect`` then sees ``(rho, cregs)``. ``backend="stabilizer"`` runs
+    the tableau engine (:class:`~qubism_torch.stabilizer.StabilizerProgram`;
+    ``inspect`` sees ``(sim, cregs)``; a ``mesh`` exits 2). ``noise`` or
+    ``trajectories`` runs ``trajectories`` noisy trajectories
     (:class:`~qubism_torch.run.noisy.TrajectoryProgram`, by ``traj_engine``,
-    the batch split over ``mesh``) and prints the counts over the classical
-    registers and each observable as mean +- stderr; ``inspect`` is not
-    called."""
+    or :class:`~qubism_torch.stabilizer.StabilizerTrajectoryProgram` on the
+    stabilizer backend; the batch split over ``mesh``) and prints the
+    counts over the classical registers and each observable as mean +-
+    stderr; ``inspect`` is not called."""
     out = out or sys.stdout
     if source is None:
         try:
@@ -200,7 +208,7 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
     except RuntimeError as e:
         print(f"qubism: {e}", file=out)
         return 2
-    if backend not in ("statevector", "density"):
+    if backend not in ("statevector", "density", "stabilizer"):
         print(f"qubism: --backend {backend}: not ported yet", file=out)
         return 2
     try:
@@ -211,11 +219,15 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
                 return rc
         elif noise is not None or trajectories is not None:
             rc = _run_trajectories(ast, noise, trajectories, traj_engine, mesh,
-                                   compile_mode, seed, shots, observables, out)
+                                   compile_mode, seed, shots, observables, out, backend)
             if rc:
                 return rc
             print("Done.", file=out)
             return 0
+        elif backend == "stabilizer":
+            rc, ps = _run_stabilizer(ast, mesh, seed, dump_state, shots, observables, out)
+            if rc:
+                return rc
         elif mesh:
             from .run.compiler import CompiledProgram
 
@@ -268,12 +280,14 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
 
 
 def _run_trajectories(ast, noise, trajectories, traj_engine, mesh, compile_mode, seed,
-                      shots, observables, out) -> int:
-    """Trajectory mode: run the program as noisy trajectories, print the
-    counts over the classical registers and the observables as mean +-
-    stderr, as the JAX package's CLI does. Returns the exit code."""
+                      shots, observables, out, backend="statevector") -> int:
+    """Trajectory mode: run the program as noisy trajectories (Clifford
+    ones on the stabilizer backend), print the counts over the classical
+    registers and the observables as mean +- stderr, as the JAX package's
+    CLI does. Returns the exit code."""
     from .run.noisy import TrajectoryProgram, resolve_traj_mesh
     from .run.traj_fused import FusedUnsupported
+    from .stabilizer import NotCliffordError, StabilizerTrajectoryProgram
 
     if compile_mode:
         print("qubism: --noise/--trajectories is its own execution mode; drop --compile",
@@ -283,7 +297,8 @@ def _run_trajectories(ast, noise, trajectories, traj_engine, mesh, compile_mode,
     # are embarrassingly parallel; no amplitude sharding)
     try:
         resolve_traj_mesh(mesh)
-        prog = TrajectoryProgram(ast, noise=noise)
+        cls = StabilizerTrajectoryProgram if backend == "stabilizer" else TrajectoryProgram
+        prog = cls(ast, noise=noise)
     except ValueError as e:
         print(f"qubism: {e}", file=out)
         return 2
@@ -292,19 +307,23 @@ def _run_trajectories(ast, noise, trajectories, traj_engine, mesh, compile_mode,
         print("qubism: trajectory mode reports classical-register counts; the program "
               "declares none (add a creg or --observable)", file=out)
         return 2
-    if mesh is not None and traj_engine == "fused":
-        # the fused engine has no mesh path: an explicit request errors
-        print("qubism: --traj-engine fused is incompatible with --mesh", file=out)
+    dense = type(prog) is TrajectoryProgram
+    if traj_engine == "fused" and (mesh is not None or not dense):
+        # the fused engine has no mesh path and no stabilizer form: an
+        # explicit request errors
+        why = "--mesh" if mesh is not None else type(prog).__name__
+        print(f"qubism: --traj-engine fused is incompatible with {why}", file=out)
         return 2
     try:
-        if mesh is None:
-            counts = prog.counts(ntraj, seed=seed, engine=traj_engine) if prog.creg_names else {}
-        else:
-            counts = prog.counts(ntraj, seed=seed, mesh=mesh) if prog.creg_names else {}
+        kw = {"engine": traj_engine} if dense and mesh is None else {"mesh": mesh}
+        counts = prog.counts(ntraj, seed=seed, **kw) if prog.creg_names else {}
     except FusedUnsupported as e:
         print(f"qubism: --traj-engine fused: {e} (drop the flag or use --traj-engine auto)",
               file=out)
         return 2
+    except NotCliffordError as e:
+        print(f"qubism: stabilizer trajectories: {e}", file=out)
+        return 1
     if prog.creg_names:
         print(f"Counts over classical registers ({ntraj} trajectories):", file=out)
         for row in sorted(counts):
@@ -355,6 +374,36 @@ def _run_density(ast, noise, mesh, compile_mode, seed, dump_state, shots, observ
     return 0, (rho, cregs)
 
 
+def _run_stabilizer(ast, mesh, seed, dump_state, shots, observables, out):
+    """The stabilizer backend in file mode: run the program on the tableau
+    engine, print its dump, shot counts and observables as the JAX
+    package's ``--backend stabilizer`` does. Returns (exit code, (sim,
+    cregs))."""
+    import collections
+
+    from .stabilizer import NotCliffordError, StabilizerProgram
+
+    if mesh:
+        print("qubism: --mesh applies to the state-vector and density backends", file=out)
+        return 2, None
+    prog = StabilizerProgram(ast)
+    try:
+        sim, cregs = prog.run(seed=seed, dump_writer=out.write)
+    except NotCliffordError as e:
+        print(f"qubism: stabilizer backend: {e}", file=out)
+        return 1, None
+    if dump_state:
+        out.write(prog._pretty(sim, cregs))
+    if shots and prog.n:
+        counts = collections.Counter("".join("01"[b] for b in row) for row in sim.sample(shots))
+        _print_basis_counts(counts, "(x)".join(prog.layout), shots, out)
+    if observables and prog.n:
+        rc = _print_observables(observables, sim.expectation, out)
+        if rc:
+            return rc, None
+    return 0, (sim, cregs)
+
+
 def _run_mesh(prog, devices, seed, dump_state, shots, out):
     """Run a program over the mesh of ``devices``, print its dump and shot
     counts as the JAX package's --mesh path does; returns (its cregs as a
@@ -396,10 +445,16 @@ def _print_basis_counts(counts, name, shots, out):
 def _print_observables(observables, compute, out) -> int:
     """Print one ``<P> = value`` line per --observable; ``compute(pauli)``
     returns a float or a (mean, stderr) pair. Returns 0 on success, 2 on a
-    rejected Pauli string."""
+    rejected Pauli string, 1 on a non-Clifford gate met by the stabilizer
+    trajectories (the exit code their counts give)."""
+    from .stabilizer import NotCliffordError
+
     for pauli in observables:
         try:
             val = compute(pauli.upper())
+        except NotCliffordError as e:
+            print(f"qubism: stabilizer trajectories: {e}", file=out)
+            return 1
         except ValueError as e:
             print(f"qubism: --observable: {e}", file=out)
             return 2

@@ -1,7 +1,8 @@
 """Circuit families for benchmarks and examples, Hamiltonians, Trotterized
 dynamics (closed, and open by the exact density matrix or by MCWF
-trajectories), quantum trajectories, and differentiable variational circuits
-(VQE / QAOA by autograd and by the adjoint method)."""
+trajectories), quantum trajectories, differentiable variational circuits
+(VQE / QAOA by autograd and by the adjoint method), and repetition-code QEC
+memory on Pauli frames."""
 
 from .variational import (  # noqa: F401
     Ansatz,
@@ -61,4 +62,9 @@ from .circuits import (  # noqa: F401
     qft_prims,
     qft_qasm,
     ring_edges,
+)
+from .qec import (  # noqa: F401
+    RepetitionMemoryResult,
+    repetition_logical_rate,
+    repetition_memory,
 )

@@ -7,6 +7,7 @@ import sys
 import time
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 #: set by the CLI's --verbose flag: per-statement timing to stderr
 VERBOSE = False
@@ -31,3 +32,24 @@ def vtimed(label: str):
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
         vlog(f"{label}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+
+class _OpCounter(TorchDispatchMode):
+    """Counts the torch operators dispatched inside it, views excluded: on
+    the card each is about one kernel launch (an indexed write may be two)."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func.is_view:
+            self.count += 1
+        return func(*args, **(kwargs or {}))
+
+
+def count_ops(fn):
+    """(fn(), the number of non-view torch operators it dispatched)."""
+    with _OpCounter() as c:
+        out = fn()
+    return out, c.count

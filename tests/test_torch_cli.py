@@ -3,9 +3,11 @@ the four execution modes, unfused registers, ``--dtype``, the REPL
 transcripts of tests/test_cli.py (the same input lines to both ``Repl``s,
 the same output text up to the sign of printed zeros), the atomic failed
 line with the kept state tensor unchanged bit for bit, each flag that is
-not ported yet exiting 2 and naming itself, and trajectory mode (``--noise``,
+not ported yet exiting 2 and naming itself, trajectory mode (``--noise``,
 ``--trajectories``, ``--traj-engine``, ``--observable`` as mean +- stderr,
-``--mesh``) against the JAX CLI's text and messages."""
+``--mesh``) and ``--backend stabilizer`` (file mode with ``--shots`` /
+``--dump-state`` / ``--observable``, noisy Clifford trajectories, and its
+exit codes) against the JAX CLI's text and messages."""
 
 import io
 import os
@@ -159,7 +161,7 @@ def counts_block(text):
 #: each package's own random stream, so the rows are held by their format
 #: and total, and the text otherwise word for word)
 @pytest.mark.parametrize("argv,named", [
-    (["--backend", "stabilizer"], "--backend stabilizer"), (["--backend", "mps"], "--backend mps"),
+    (["--backend", "mps"], "--backend mps"),
     (["--noise", "dep:0.1"], None),
     (["--trajectories", "16"], None), (["--traj-engine", "fused"], None),
     (["--chi", "8"], "--chi"), (["--trunc-budget", "1e-6"], "--trunc-budget"),
@@ -249,6 +251,78 @@ def test_eval_file_refuses_unported_engines(tmp_path):
     (trc, tout), (jrc, jout) = eval_both(f, noise="dep:0.1")
     assert trc == jrc == 2 and tout == jout
     assert tout.startswith("qubism: trajectory mode reports classical-register counts")
+
+
+# -- --backend stabilizer ------------------------------------------------------------
+
+
+GHZ_FILE = "\n".join(["qreg q[40]; creg c[40];", "U(pi/2, 0, pi) q[0];"]
+                     + [f"CX q[{k}], q[{k + 1}];" for k in range(39)]) + "\n"
+
+
+def test_stabilizer_dump_state_prints_the_jax_text():
+    path = os.path.join(EXAMPLES, "errorCorrection.qasm")
+    (trc, tout), (jrc, jout) = eval_both(path, seed=0, backend="stabilizer", dump_state=True)
+    assert trc == jrc == 0 and tout == jout
+    assert "Stabilizers of q(x)a:\n" in tout and "CReg syn[2] = 10\n" in tout
+
+
+def test_stabilizer_shots_and_observables(tmp_path):
+    f = tmp_path / "ghz.qasm"
+    f.write_text(GHZ_FILE)
+    obs = ["Z" + "I" * 38 + "Z", "X" * 40, "Z" + "I" * 39]
+    (trc, tout), (jrc, jout) = eval_both(f, seed=3, backend="stabilizer", shots=256,
+                                         observables=obs)
+    assert trc == jrc == 0
+    head, rows, tail = counts_block(tout)
+    jhead, jrows, jtail = counts_block(jout)
+    assert head == jhead == "Counts for state vector q (256 shots):"
+    assert set(rows) <= {"|" + "0" * 40 + ">", "|" + "1" * 40 + ">"} and sum(rows.values()) == 256
+    assert tail == jtail and tail[-1] == "Done." and tail[:2] == [f"<{o}> = 1.000000" for o in obs[:2]]
+
+
+def test_stabilizer_trajectory_mode(tmp_path):
+    f = tmp_path / "ghz.qasm"
+    f.write_text(GHZ_FILE + "measure q -> c;\n")
+    kw = dict(seed=1, backend="stabilizer", noise="bf:0.01", trajectories=128,
+              observables=["Z" + "I" * 39])
+    (trc, tout), (jrc, jout) = eval_both(f, **kw)
+    assert trc == jrc == 0
+    (th, trows, ttail), (jh, jrows, jtail) = counts_block(tout), counts_block(jout)
+    assert th == jh == "Counts over classical registers (128 trajectories):"
+    assert sum(trows.values()) == sum(jrows.values()) == 128
+    pat = r"<ZI{39}> = -?\d\.\d{6} \+- \d\.\d{6}"
+    assert re.fullmatch(pat, ttail[0]) and re.fullmatch(pat, jtail[0]) and ttail[1] == "Done."
+    # feed-forward runs the tableau batch; --mesh splits it, the same text
+    ff = tmp_path / "ff.qasm"
+    ff.write_text("qreg q[2]; creg c[1]; creg d[1];\nU(pi/2, 0, pi) q[0];\n"
+                  "measure q[0] -> c[0];\nif (c == 1) U(pi, 0, pi) q[1];\nmeasure q[1] -> d[0];\n")
+    outs = []
+    for mesh in (None, 2):
+        buf = io.StringIO()
+        assert tcli.eval_file(str(ff), seed=4, backend="stabilizer", noise="dep:0.02",
+                              trajectories=64, mesh=mesh, out=buf) == 0
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1] and counts_block(outs[0])[0].endswith("(64 trajectories):")
+
+
+@pytest.mark.parametrize("src,kw,rc", [
+    (BELL + "creg c[2];\nmeasure q -> c;\n", dict(mesh=2), 2),
+    (BELL + "creg c[2];\nmeasure q -> c;\n", dict(noise="dep:0.1", traj_engine="fused"), 2),
+    (BELL + "creg c[2];\nmeasure q -> c;\n", dict(noise="ad:0.1"), 2),
+    (BELL + "creg c[2];\nmeasure q -> c;\n", dict(noise="dep:0.1@q[0]"), 2),
+    ("qreg q[1]; creg c[1];\nU(pi/4, 0, 0) q[0];\nmeasure q -> c;\n", {}, 1),
+    ("qreg q[1]; creg c[1];\nU(pi/4, 0, 0) q[0];\nmeasure q -> c;\n",
+     dict(noise="bf:0.1", trajectories=8), 1),
+    ("qreg q[1];\nU(pi/4, 0, 0) q[0];\n", dict(noise="bf:0.1", observables=["Z"]), 1),
+], ids=["mesh", "fused", "ad", "targeted", "non-clifford", "non-clifford trajectories",
+        "non-clifford observable"])
+def test_stabilizer_exit_codes_match_jax(src, kw, rc, tmp_path):
+    f = tmp_path / "t.qasm"
+    f.write_text(src)
+    (trc, tout), (jrc, jout) = eval_both(f, seed=1, backend="stabilizer", **kw)
+    assert trc == jrc == rc and tout == jout
+    assert tout.startswith("qubism: ")
 
 
 def test_every_flag_of_the_jax_cli_is_parsed():
@@ -403,7 +477,8 @@ def test_port_imports_no_jax():
         with open(path) as f:
             assert not pattern.search(f.read()), path
     code = ("import sys, qubism_torch.cli, qubism_torch.core.density, qubism_torch.run.noisy, "
-            "qubism_torch.parallel.density, qubism_torch.ops.rdm, qubism_torch.utils.checkpoint; "
+            "qubism_torch.parallel.density, qubism_torch.ops.rdm, qubism_torch.utils.checkpoint, "
+            "qubism_torch.stabilizer, qubism_torch.models.qec; "
             "assert 'jax' not in sys.modules and 'triton' not in sys.modules; "
             "assert not any(m.startswith('qubism_tpu') for m in sys.modules)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
