@@ -17,7 +17,7 @@ target view, diag beside one ``mul_`` by its 2^n diagonal, each library
 call first held against the plain version; a lane or diag call prepares
 and uploads its operands, so
 their lines also give the kernel on operands prepared once). Then it drives
-twelve paths, each with the launch counters set to 0 just before it and read
+fourteen paths, each with the launch counters set to 0 just before it and read
 just after (a ``phase <path>: diag launches by (factors, widest k)`` line
 gives the shapes of its diag passes). The device-operand modes of K1, K4
 and K3 (``gate_dev``, ``layer1q_dev``, ``lane_dev``: the matrix read from
@@ -62,15 +62,26 @@ at n = 28 (``time n=28 gate dev`` etc.). The paths:
   dump, against the same programs with every pass applied by the plain
   versions, and ``apply_channel`` against ``apply_channel_plain``;
 * the mesh density path: n = 15 as 4 shards of 2^28 on the one card against
-  ``DensityMatrix``, and n = 12 entry by entry;
+  ``DensityMatrix``, and n = 12 entry by entry; ``lindblad_evolve`` on
+  ``ShardedDensityMatrix(14)`` (bench.py's damping from |1...1> at rate 0.8
+  on qubits 0, 7 and 13 under a ZZ chain, t = 0.5 in 8 steps) on one shard
+  and on 4, against the exact law 1 - 2 exp(-0.4) to 1e-3, trace to 1e-4;
 * the variational trainer: the kernel adjoint engine against the plain
   sweep at n = 20 (QAOA with chords, the HEA under an XXZ chain; energies
   to 1e-4, gradients to 5e-4) and against float64 numpy at n = 12; QAOA
   MaxCut on a 28-qubit ring at p = 2 (launches per call against
   ``plan_units``, a central difference, device ms by kernel, the call split
   into its parts with the host time of building operands, the peak at p = 1
-  and p = 2); one value and gradient at n = 30; two ``vqe_minimize`` steps;
-  the TFIM HVA at n = 24 (the head for a non-diagonal H);
+  and p = 2); two ``vqe_minimize`` steps; the TFIM HVA at n = 24 (the head
+  for a non-diagonal H);
+* the variational trainer on an amplitude mesh (``models/adjoint_mesh.py``,
+  ``mesh=``): QAOA-28 p = 2 through the mesh kernel engine on one shard and
+  on 4 shards of the card against the single-buffer engine (|dE|, max |dg|
+  < 1e-3, bench.py's pin), warm seconds of the three, the host-timed share
+  of the gradient contraction; QAOA-30 over 2 shards of 2^29 against the
+  single-buffer engine at n = 30, with both peaks; device-bit rx on 4
+  shards at n = 20 against the plain sweep on the shards; three
+  ``vqe_minimize(mesh=...)`` steps;
 * the dynamics: a TFIM quench at n = 28 through ``evolve_observed`` against
   the same run by the plain versions (to 1e-5; energy kept to 1e-3), and
   imaginary time at n = 12 down to the ground energy (to 1e-3);
@@ -107,7 +118,19 @@ at n = 28 (``time n=28 gate dev`` etc.). The paths:
   with 8192 shots). Each of S1-S4 prints its warm seconds (best of 3 after
   a warm-up), its torch ops in total and per gate or layer step (the
   card's own count of kernels from ``torch.profiler`` beside S1's chain),
-  its synchronising calls, measurement rounds and peak.
+  its synchronising calls, measurement rounds and peak;
+* the protocol models: linear XEB of brickwork-30 (8192 samples) against
+  2^n sum p^2 - 1 summed on the card; grouped shot estimation on the
+  QAOA-28 state (4096 shots a group) against ``expectation_pauli_sum``;
+  classical shadows at n = 20; MLAE at n = 16; Shor's factors of 15 and 21
+  and its order-finding circuits; quantum volume at m = 6 (density against
+  trajectories); 2-qubit RB against the depolarizing law; simultaneous RB
+  on 100 qubits (Pauli frames); ZNE on GHZ-12. Each line gives its seconds.
+
+After the paths, the stream probes that read behind their library call
+(``phase_256x1``, ``copy_256x1``, ``read_256x4``, ``write_256x4``) are timed
+beside it, alternately in one window, three rounds (``probe beside library``
+lines).
 
 The butterfly kernel (K6) is held against its plain version at 2^20 and
 2^30 amplitudes in 2, 4 and 16 banks and timed at 2^28 beside one
@@ -161,9 +184,8 @@ OBS_SLACK_GIB = 1.5
 MESH_DENS_PEAK_GIB = 12.0
 #: the variational path's widths: the kernel engine against the plain one,
 #: against float64 numpy, QAOA MaxCut on a ring (the JAX package's bench
-#: config, p = 2), the widest value and gradient, the TFIM HVA; and the
-#: Adam steps of vqe_minimize
-N_VAR, N_VAR_REF, N_QAOA, N_VAR_WIDE, N_HVA, VQE_STEPS = 20, 12, 28, 30, 24, 2
+#: config, p = 2), the TFIM HVA; and the Adam steps of vqe_minimize
+N_VAR, N_VAR_REF, N_QAOA, N_HVA, VQE_STEPS = 20, 12, 28, 24, 2
 #: tolerances of the engines against each other (tests/test_variational.py's)
 #: and against the float64 reference (relative to the largest |value| where
 #: that is above 1: a float32 state carries about 7 digits, so a gradient
@@ -201,6 +223,20 @@ N_FALLBACK, FALLBACK_T, FALLBACK_P = 1000, 64, 0.01
 #: operands (the lane operand, the sample's row masses, small tables); and
 #: the most the vmapped engine's peak may grow from one batch to many
 TRAJ_SLACK_GIB = 0.25
+#: the variational mesh path: QAOA at n = N_MESH_WIDE over 2 shards of
+#: 2^29 (the widest block without banks), device-bit rx gates on 4 shards at
+#: n = N_MESH_RX, the Adam steps of vqe_minimize(mesh=...), and the mesh
+#: engine against the single-buffer one (bench.py's pin)
+N_MESH_WIDE, N_MESH_RX, VQE_MESH_STEPS, MESH_TOL = 30, 20, 3, 1e-3
+#: the sharded Lindblad (bench.py's): width, damping rate, time, Trotter steps
+N_LIND_MESH, LIND_RATE, LIND_T, LIND_STEPS = 14, 0.8, 0.5, 8
+#: the protocols path: XEB's samples, the estimator's shots a group, the
+#: shadows' width and snapshots, MLAE's width, quantum volume's width and
+#: circuits, simultaneous RB's width, ZNE's width
+XEB_SHOTS, EST_SHOTS = 8192, 4096
+N_SHADOW, SHADOW_T, N_MLAE, QV_M, QV_CIRCUITS, N_SRB, N_ZNE = 20, 2048, 16, 6, 5, 100, 12
+#: the stream probes timed beside their library call in one window
+PROBE_LIBRARY_ROWS = ("phase_256x1", "copy_256x1", "read_256x4", "write_256x4")
 
 #: kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -228,10 +264,12 @@ PATH_KERNELS = {
     "density path": ("gate", "diag", "lane"),
     "mesh density path": ("gate", "diag"),
     "variational": ("gate", "diag", "lane", "layer1q"),
+    "variational mesh": ("diag", "lane", "layer1q"),
     "dynamics": ("diag", "lane", "layer1q"),
     "trajectories": ("gate", "lane", "layer1q"),
     # plain torch, as the reference's stabilizer engine is plain XLA
     "stabilizer": (),
+    "protocols": ("gate", "diag", "lane", "layer1q"),
 }
 #: the port's kernels of the variational path, by their names in the
 #: library (device time of a profiled engine call is split by these)
@@ -294,6 +332,13 @@ def sync():
 
     if DEV == "cuda":
         torch.cuda.synchronize()
+
+
+def card_mesh(shards):
+    """``shards`` shards placed on the one device (a device may repeat)."""
+    import torch
+
+    return (torch.device(DEV, 0) if DEV == "cuda" else torch.device(DEV),) * shards
 
 
 def rel_err(a, b):
@@ -1314,7 +1359,7 @@ def run_mesh_path():
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(404)
-    sim = ShardedSim(n, [torch.device(DEV, 0) if DEV == "cuda" else DEV] * 4, banks=2)
+    sim = ShardedSim(n, card_mesh(4), banks=2)
     check((sim.D, sim.w, sim.m) == (4, 2, n - 4), f"4-shard layout {sim.D, sim.w, sim.m}")
     t0 = time.perf_counter()
     prims = mesh_prims(n, rng)
@@ -1673,7 +1718,7 @@ def run_mesh_density_path():
     from qubism_torch.run.compiler import EvGates
     from qubism_torch.run.noisy import DensityProgram
 
-    mesh = [torch.device(DEV, 0) if DEV == "cuda" else torch.device(DEV)] * 4
+    mesh = card_mesh(4)
 
     n = N_DENS_SMALL
     for label, src in noisy_programs(n).items():
@@ -1755,6 +1800,38 @@ def run_mesh_density_path():
     if DEV == "cuda":
         torch.cuda.empty_cache()
 
+    # lindblad_evolve on the sharded rho (bench.py's configuration): pure
+    # damping from |1...1> under a diagonal Ising H, so <Z_q> follows the
+    # exact law 1 - 2 exp(-rate t) on the damped qubits
+    from qubism_torch.core.gates import Prim
+    from qubism_torch.models.dynamics import lindblad_evolve
+    from qubism_torch.parallel import make_mesh
+    from qubism_torch.parallel.density import ShardedDensityMatrix
+
+    n = N_LIND_MESH
+    damped = (0, n // 2, n - 1)
+    x = np.array([[0, 1], [1, 0]], dtype=complex)
+    sm = np.array([[0, 1], [0, 0]], dtype=complex)
+    h_terms = [(0.5, mixed_pauli(n, {i: "Z", i + 1: "Z"})) for i in range(n - 1)]
+    obs = [mixed_pauli(n, {q: "Z"}) for q in damped]
+    law = 1.0 - 2.0 * math.exp(-LIND_RATE * LIND_T)
+    for label, lmesh in (("mesh=1", make_mesh(1)), ("4 shards", card_mesh(4))):
+        def run():
+            rho = ShardedDensityMatrix(n, lmesh).apply([Prim(x, (q,)) for q in range(n)])
+            return lindblad_evolve(rho, h_terms, [(LIND_RATE, sm, q) for q in damped],
+                                   t=LIND_T, steps=LIND_STEPS, observables=obs)
+
+        ((rho, vals), secs), peak = peak_gib(lambda: timed_call(run))
+        err = float(np.abs(vals[-1] - law).max())
+        tr = rho.trace()
+        log(f"mesh density lindblad n={n} {label} (D={rho.sim.D}, 2^{rho.sim.m} a shard): "
+            f"{LIND_STEPS} steps of t = {LIND_T} in {secs:.3f} s, <Z_q> {vals[-1].round(6).tolist()}"
+            f" against 1 - 2 exp(-{LIND_RATE * LIND_T}) = {law:.6f}: max err {err:.2e}, trace "
+            f"{tr:.7f}, {rho.sim.dispatch_count} segments, swaps and channels, peak {peak:.2f} GiB")
+        check(err < 1e-3 and abs(tr - 1.0) < 1e-4, f"lindblad {label}: err {err}, trace {tr}")
+        del rho
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
 
 def qaoa_chords(n):
     """A ring with four chords: across the row qubits, from a row qubit into
@@ -1891,9 +1968,9 @@ def run_variational_path():
     sweep (QAOA with chords, the HEA under an XXZ chain) and against float64
     numpy; QAOA-28 p = 2 (launches against ``plan_units``, three warm calls, a
     finite difference, device time by kernel, the call split into its parts,
-    the peak at p = 1 and p = 2); one value and gradient at n = 30;
-    ``vqe_minimize(grad="adjoint")`` at n = 28; the TFIM HVA (the head for a
-    non-diagonal H) against the plain sweep."""
+    the peak at p = 1 and p = 2); ``vqe_minimize(grad="adjoint")`` at n =
+    28; the TFIM HVA (the head for a non-diagonal H) against the plain
+    sweep. (n = 30 is the variational mesh path's.)"""
     import numpy as np
     import torch
 
@@ -2016,23 +2093,149 @@ def run_variational_path():
     if DEV == "cuda":
         torch.cuda.empty_cache()
 
-    # one value and gradient at n = 30
-    n = N_VAR_WIDE
+    # the head for a non-diagonal H
+    engines(f"tfim_hva{N_HVA} 2 layers, tfim", V.tfim_hva_ansatz(N_HVA, 2), tfim(N_HVA)[0], 0.0)
+
+
+def timed_mesh_sweep(ansatz, terms, constant, theta, mesh):
+    """The mesh engine's sweep (``adjoint_mesh.mesh_adjoint_value_and_grad_fn``)
+    run part by part from its own functions, the host clock around each
+    part, synchronised: (E, gradient, {part: ms})."""
+    import numpy as np
+
+    from qubism_torch.models import adjoint_mesh as AM
+    from qubism_torch.models import variational as V
+
+    devices, d, m, units = AM._validate(ansatz, mesh)
+    n = ansatz.n
+    _, checked = V._check_terms(terms, n)
+    th = V._host_theta(theta)
+    ms = dict.fromkeys(("forward", "head", "contraction", "reverse"), 0.0)
+
+    def part(name, fn):
+        out, secs = timed_call(fn)
+        ms[name] += secs * 1e3
+        return out
+
+    phi = V._zero_shards(devices, m)
+    for unit in units:
+        part("forward", lambda u=unit: AM._apply_unit(phi, u, th, d, m))
+    e, lam = part("head", lambda: AM._head(phi, checked, d, m))
+    g = np.zeros(ansatz.num_params)
+    for unit in reversed(units):
+        part("contraction", lambda u=unit: AM._unit_grad(phi, lam, u, n, d, g))
+        part("reverse", lambda u=unit: (AM._apply_unit(phi, u, th, d, m, dag=True),
+                                        AM._apply_unit(lam, u, th, d, m, dag=True)))
+    return e + constant, g, ms
+
+
+def run_variational_mesh_path():
+    """The variational trainer on an amplitude mesh
+    (``models/adjoint_mesh.py``, ``mesh=``): QAOA-28 p = 2 (bench.py's
+    configuration) through the mesh kernel engine on one shard and on 4
+    shards of the card against the single-buffer engine (|dE|, max |dg| <
+    MESH_TOL), warm seconds of the three and the host-timed share of the
+    gradient contraction; QAOA-30 p = 2 over 2 shards of 2^29 against the
+    single-buffer engine at n = 30, with both peaks; device-bit rx gates on
+    4 shards at n = N_MESH_RX through the kernels against the plain sweep
+    on the shards; VQE_MESH_STEPS ``vqe_minimize(mesh=...)`` steps."""
+    import numpy as np
+    import torch
+
+    from qubism_torch.models import variational as V
+    from qubism_torch.models.adjoint_mesh import mesh_adjoint_value_and_grad_fn
+    from qubism_torch.parallel import make_mesh
+
+    n = N_QAOA
     ans, terms, const = qaoa_ring(n, 2)
-    vg = V.adjoint_value_and_grad_fn(ans, terms, constant=const)
-    ((e, g), secs), peak = peak_gib(lambda: timed_call(vg, theta))
-    state_gib = (8 << n) / 2**30
-    log(f"variational qaoa{n} p=2: E = {float(e):.6f}, g = {g.numpy().round(6).tolist()}, "
-        f"{secs:.3f} s (first call), peak {peak:.2f} GiB (state {state_gib:.2f})")
-    check(math.isfinite(float(e)) and bool(torch.isfinite(g).all()), f"qaoa{n}: {e}, {g}")
-    check(peak <= 4 * state_gib + VAR_SLACK_GIB,
-          f"qaoa{n}: peak {peak:.2f} GiB > 4 states + {VAR_SLACK_GIB}")
-    del vg
+    theta = np.full(ans.num_params, 0.25, dtype=np.float32)
+    single = V.adjoint_value_and_grad_fn(ans, terms, constant=const)
+    check(single._engine == "kernels", f"qaoa{n}: the single-buffer engine is {single._engine}")
+    want, _ = tally(REFERENCE, lambda: timed_call(single, theta))
+    _, single_s = tally(REFERENCE, lambda: timed_call(single, theta))
+    warm = {"single buffer": single_s}
+    shares = {}
+    for label, mesh in (("mesh=1", make_mesh(1)), ("4 shards", card_mesh(4))):
+        vg = V.adjoint_value_and_grad_fn(ans, terms, constant=const, mesh=mesh)
+        check(vg._engine == "kernels-mesh", f"qaoa{n} {label}: engine auto picked {vg._engine}")
+        (got, cold), peak = peak_gib(lambda: timed_call(vg, theta))
+        got, secs = timed_call(vg, theta)
+        warm[label] = secs
+        de, dg = vg_gap(got, want)
+        e_t, g_t, parts = tally(TIMED, lambda: timed_mesh_sweep(ans, terms, const, theta, mesh))
+        check(max(vg_gap((e_t, g_t), got)) <= 1e-5, f"qaoa{n} {label}: the timed sweep differs")
+        shares[label] = parts["contraction"] / sum(parts.values())
+        log(f"variational mesh qaoa{n} p=2 {label}: E = {float(got[0]):.6f}, |dE| {de:.2e}, "
+            f"max |dg| {dg:.2e} against the single-buffer engine; first call {cold:.3f} s, "
+            f"warm {secs:.3f} s, peak {peak:.2f} GiB; parts (host ms, synchronised) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+            + f": contraction {shares[label]:.1%}")
+        check(de < MESH_TOL and dg < MESH_TOL,
+              f"qaoa{n} {label}: |dE| {de:.2e}, max |dg| {dg:.2e} against the single buffer")
+        del vg
+    log(f"variational mesh qaoa{n} p=2 warm s: " + ", ".join(f"{k} {v:.3f}"
+                                                               for k, v in warm.items()))
+
+    # VQE_MESH_STEPS Adam steps through the mesh engine on one shard
+    torch.optim.Adam([torch.zeros(1, requires_grad=True)])
+    (theta_opt, hist), secs = timed_call(lambda: V.vqe_minimize(
+        ans, terms, theta, steps=VQE_MESH_STEPS, constant=const, grad="adjoint",
+        mesh=make_mesh(1)))
+    moved = float(np.abs(theta_opt.numpy() - theta).max())
+    log(f"variational mesh vqe_minimize qaoa{n} p=2 mesh=1, {VQE_MESH_STEPS} Adam steps: "
+        f"energies {hist.tolist()}, theta moved {moved:.4f}; {secs / VQE_MESH_STEPS:.3f} s "
+        f"per step")
+    check(bool(torch.isfinite(hist).all()) and moved > 1e-3 and abs(float(hist[0]) - float(
+        want[0])) < MESH_TOL, f"vqe_minimize mesh: energies {hist.tolist()}, moved {moved}")
+    del single
     if DEV == "cuda":
         torch.cuda.empty_cache()
 
-    # the head for a non-diagonal H
-    engines(f"tfim_hva{N_HVA} 2 layers, tfim", V.tfim_hva_ansatz(N_HVA, 2), tfim(N_HVA)[0], 0.0)
+    # QAOA-30 over 2 shards of 2^29 (the widest block without banks), then
+    # the single-buffer engine at n = 30
+    n = N_MESH_WIDE
+    ans, terms, const = qaoa_ring(n, 2)
+    vg = mesh_adjoint_value_and_grad_fn(ans, terms, card_mesh(2), constant=const)
+    (got, secs), peak = peak_gib(lambda: timed_call(vg, theta))
+    del vg
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    single = V.adjoint_value_and_grad_fn(ans, terms, constant=const)
+    (want, ssecs), speak = tally(REFERENCE, lambda: peak_gib(lambda: timed_call(single, theta)))
+    de, dg = vg_gap(got, want)
+    state_gib = (8 << n) / 2**30
+    log(f"variational mesh qaoa{n} p=2 on 2 shards: E = {float(got[0]):.6f}, g = "
+        f"{np.asarray(got[1]).round(6).tolist()}, {secs:.3f} s (first call), peak {peak:.2f} "
+        f"GiB (state {state_gib:.2f}); single buffer {ssecs:.3f} s, peak {speak:.2f} GiB: |dE| "
+        f"{de:.2e}, max |dg| {dg:.2e}")
+    check(de < MESH_TOL and dg < MESH_TOL, f"qaoa{n} on 2 shards: |dE| {de:.2e}, |dg| {dg:.2e}")
+    check(peak <= 4 * state_gib + VAR_SLACK_GIB,
+          f"qaoa{n} on 2 shards: peak {peak:.2f} GiB > 4 states + {VAR_SLACK_GIB}")
+    del single
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+    # device-bit rx (the mixers on qubits 0 and 1 of 4 shards): the kernels
+    # against the plain sweep on the same shards, and the shards' state
+    n = N_MESH_RX
+    ans, terms, const = qaoa_ring(n, 2)
+    theta = np.random.default_rng(11).uniform(-math.pi, math.pi, 4).astype(np.float32)
+    mesh = card_mesh(4)
+    got, secs = timed_call(mesh_adjoint_value_and_grad_fn(ans, terms, mesh, constant=const),
+                           theta)
+    plain = V.adjoint_value_and_grad_fn(ans, terms, constant=const, mesh=mesh, engine="plain")
+    check(plain._engine == "plain-mesh", f"rx{n}: plain engine {plain._engine}")
+    want, psecs = timed_call(plain, theta)
+    de, dg = vg_gap(got, want)
+    with torch.no_grad():
+        shards = V.state_fn(ans, mesh=mesh)(theta)
+        flat = V.state_fn(ans)(theta)
+    serr = float((torch.cat(shards) - flat).abs().max())
+    log(f"variational mesh qaoa{n} p=2, rx on device bits of 4 shards: kernels {secs:.3f} s, "
+        f"plain sweep on the shards {psecs:.3f} s: |dE| {de:.2e}, max |dg| {dg:.2e}; "
+        f"state_fn(mesh) against one buffer max abs {serr:.2e}")
+    check(de <= VAR_E_TOL and dg <= VAR_G_TOL and serr <= 1e-5,
+          f"rx{n} on 4 shards: |dE| {de:.2e}, |dg| {dg:.2e}, state {serr:.2e}")
 
 
 def sparse_hamiltonian(terms, n):
@@ -2624,6 +2827,174 @@ def run_stabilizer_path():
 
 
 #: seconds per trajectory of the timed runs, by engine and program
+def run_protocols_path():
+    """The protocol models on the card's engines: linear XEB of the
+    compiled brickwork-30 state (8192 of its own samples) against
+    2^n sum p^2 - 1 summed on the card, within 5 of its standard errors;
+    grouped shot estimation on the QAOA-28 state (4096 shots per group)
+    within 5 standard errors of ``expectation_pauli_sum``; classical shadows
+    at n = 20 (2-local Paulis within 5 of their standard deviation bound,
+    3/sqrt(T)); MLAE at n = 16; Shor on 15 and 21; quantum volume at m = 6
+    (density against trajectories); 2-qubit RB against the depolarizing
+    law; simultaneous RB on 100 qubits on Pauli frames; ZNE at n = 12."""
+    import numpy as np
+    import torch
+
+    from qubism_torch import models as Q
+    from qubism_torch.core.density import depolarizing, depolarizing2
+    from qubism_torch.core.gates import Prim
+    from qubism_torch.core.statevec import StateVec
+    from qubism_torch.models import variational as V
+    from qubism_torch.ops import measure as M
+    from qubism_torch.ops.fusion import CompiledCircuit
+
+    def timed(fn):
+        out, secs = timed_call(fn)
+        return out, f"{secs:.3f} s"
+
+    # XEB of brickwork-30
+    n = N_BIG
+    circ = CompiledCircuit(n, Q.brickwork_prims(n, 4, seed=7))
+    state = circ(circ.init_state())
+    sv = StateVec(n, state)
+    idx, secs = timed(lambda: Q.counts_to_indices(sv.sample(XEB_SHOTS, seed=17)))
+    (f, se), fsecs = timed(lambda: Q.xeb_stderr(sv, idx))
+    sum_p2 = 0.0
+    for part in state.split(1 << 24):
+        sum_p2 += float((torch.view_as_real(part).double().square().sum(-1) ** 2).sum())
+    exact = (1 << n) * sum_p2 - 1.0
+    log(f"protocols xeb brickwork{n}: F = {f:.5f} +- {se:.5f} from {XEB_SHOTS} samples "
+        f"({secs} sampling, {fsecs} scoring), 2^n sum p^2 - 1 = {exact:.5f}")
+    check(abs(f - exact) <= 5 * se, f"xeb{n}: {f} +- {se} against {exact}")
+    del circ, state, sv
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+    # grouped shot estimation on the QAOA-28 state
+    n = N_QAOA
+    ans, _, _ = qaoa_ring(n, 2)
+    prims = V.bind(ans, np.full(ans.num_params, 0.25))
+    terms = ([(0.5, mixed_pauli(n, {i: "Z", (i + 1) % n: "Z"})) for i in range(n)]
+             + [(0.3, mixed_pauli(n, {i: "X"})) for i in range(n)]
+             + [(0.2, mixed_pauli(n, {i: "Y", (i + 1) % n: "Y"})) for i in range(0, n, 2)])
+    groups, _ = Q.qwc_groups([p for _, p in terms])
+    (mean, err), secs = timed(lambda: Q.estimate_pauli_sum(
+        prims, n, terms, shots=EST_SHOTS * len(groups), seed=5, allocation="uniform"))
+    circ = CompiledCircuit(n, prims)
+    exact = M.expectation_pauli_sum(circ(circ.init_state()), n, terms)
+    del circ
+    log(f"protocols estimate_pauli_sum qaoa{n}: {mean:.5f} +- {err:.5f} ({len(terms)} terms "
+        f"in {len(groups)} groups, {EST_SHOTS} shots a group, {secs}); exact {exact:.5f}")
+    check(abs(mean - exact) <= 5 * err, f"estimate{n}: {mean} +- {err} against {exact}")
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+    # classical shadows at n = 20
+    n = N_SHADOW
+    prims = Q.brickwork_prims(n, 3, seed=3)
+    rec, secs = timed(lambda: Q.shadow_snapshots(prims, n, SHADOW_T, seed=9))
+    circ = CompiledCircuit(n, prims)
+    psi = circ(circ.init_state())
+    paulis = [mixed_pauli(n, {q: a, q + 1: b}) for q in (0, n // 3, 2 * n // 3, n - 2)
+              for a, b in (("Z", "Z"), ("X", "X"), ("Y", "Z"))]
+    bound = 5 * 3.0 / math.sqrt(SHADOW_T)
+    worst = max(abs(Q.shadow_expectation(rec, p) - M.expectation_pauli(psi, n, p))
+                for p in paulis)
+    log(f"protocols shadows n={n}: {SHADOW_T} snapshots in {secs}; {len(paulis)} 2-local "
+        f"Paulis, worst |estimate - exact| {worst:.4f} (bound 5 x 3/sqrt(T) = {bound:.4f})")
+    check(worst <= bound, f"shadows{n}: {worst} > {bound}")
+    del circ, psi
+
+    # MLAE at n = 16
+    n = N_MLAE
+    h = np.array([[1, 1], [1, -1]]) / math.sqrt(2)
+    good = tuple(int(x) for x in np.random.default_rng(4).choice(1 << n, 900, replace=False))
+    res, secs = timed(lambda: Q.mlae_estimate([Prim(h, (q,)) for q in range(n)], n, good,
+                                                      shots=256, seed=11))
+    log(f"protocols mlae n={n}: a_hat {res.a_hat:.6f}, exact {res.a_exact:.6f} "
+        f"({900 / 2**n:.6f}), {res.queries} queries, {secs}")
+    check(abs(res.a_exact - 900 / 2**n) < 1e-5 and abs(res.a_hat - res.a_exact) < 0.1 * res.a_exact,
+          f"mlae{n}: {res}")
+
+    # Shor: the factors, and the order-finding circuits themselves (a
+    # factor can come from a lucky gcd without one)
+    for n_mod, t in ((15, None), (21, 9)):
+        (p, q), secs = timed(lambda: Q.shor_factor(n_mod, seed=1, t=t))
+        log(f"protocols shor_factor({n_mod}) = {p} x {q} ({secs})")
+        check(p * q == n_mod and 1 < p < n_mod, f"shor {n_mod}: {p} x {q}")
+    for a, n_mod, t, want in ((7, 15, 9, 4), (2, 21, 9, 6)):
+        r, secs = timed(lambda: Q.estimate_order(a, n_mod, t=t, shots=48, seed=3))
+        log(f"protocols estimate_order({a}, {n_mod}, t={t}) = {r} on "
+            f"{t + (n_mod - 1).bit_length()} qubits ({secs})")
+        check(r == want, f"order of {a} mod {n_mod}: {r}, not {want}")
+
+    # quantum volume at m = 6: density against trajectories
+    kraus2 = depolarizing2(0.02)
+    exact, secs = timed(lambda: Q.qv_experiment(m=QV_M, n_circuits=QV_CIRCUITS, seed=3,
+                                                     kraus2=kraus2))
+    est, tsecs = timed(lambda: Q.qv_experiment(m=QV_M, n_circuits=QV_CIRCUITS, seed=3,
+                                                    kraus2=kraus2, executor="trajectories",
+                                                    ntraj=512))
+    gap = max(abs(a - b) for a, b in zip(exact.hops, est.hops))
+    log(f"protocols qv m={QV_M}: heavy-output mean {exact.hop_mean:.4f} by density ({secs}), "
+        f"{est.hop_mean:.4f} by 512 trajectories ({tsecs}), worst circuit gap {gap:.4f}")
+    check(gap < 0.08, f"qv{QV_M}: density {exact.hops} against trajectories {est.hops}")
+
+    # RB on 2 qubits against the depolarizing law
+    p = 0.03
+    (_, _, alpha, r), secs = timed(lambda: Q.rb_experiment(2, depolarizing2(p),
+                                                                 ms=(1, 2, 4, 8), n_seq=4,
+                                                                 seed=2))
+    log(f"protocols rb k=2: alpha {alpha:.7f} against 1 - 16p/15 = {1 - 16 * p / 15:.7f}, "
+        f"r {r:.6f} ({secs})")
+    check(abs(alpha - (1 - 16 * p / 15)) < 1e-6, f"rb: alpha {alpha}")
+
+    # simultaneous RB at n = 100 on Pauli frames
+    (surv, expected, frames), secs = timed(lambda: Q.simultaneous_rb_survivals(
+        N_SRB, 4, 0.02, ntraj=2048, seed=6))
+    sigma = np.sqrt(expected * (1 - expected) / 2048)
+    worst = float((np.abs(surv - expected) / sigma).max())
+    log(f"protocols simultaneous rb n={N_SRB}: frames {frames}, worst |surv - law| "
+        f"{worst:.2f} sigma ({secs})")
+    check(frames and worst < 5, f"simultaneous rb: frames {frames}, {worst} sigma")
+
+    # ZNE at n = 12
+    n = N_ZNE
+    (est, vals), secs = timed(lambda: Q.zne_expectation(
+        Q.ghz_prims(n), n, "Z" * n, kraus1=depolarizing(0.005), kraus2=depolarizing2(0.01),
+        scales=(1, 3, 5), method="exp"))
+    log(f"protocols zne ghz{n} <Z^{n}>: raw {vals}, extrapolated {est:.5f} ({secs})")
+    check(abs(est - 1.0) < abs(vals[0] - 1.0) / 3, f"zne{n}: {est} from {vals}")
+
+
+def time_probes_beside_library():
+    """The stream probes whose rows read behind their library call (P1
+    ``phase_256x1`` beside ``mul_``, P2 ``copy_256x1`` beside ``copy_``, P4
+    ``read_256x4`` beside ``torch.sum``, P5 ``write_256x4`` beside
+    ``fill_``), each pair timed alternately in one window, three rounds
+    (``bw_probe.time_pass``: a warm-up, best of 3 windows of 16 calls).
+    Run after the paths' counts were read: not their work."""
+    import torch
+
+    from qubism_torch.experiments import bw_probe
+
+    for variant in PROBE_LIBRARY_ROWS:
+        probe = bw_probe.VARIANTS[variant](N_TIME, DEV)
+        kern, lib = [], []
+        for _ in range(3):
+            kern.append(bw_probe.time_pass(probe.run))
+            lib.append(bw_probe.time_pass(probe.library))
+        spread = max(max(kern) - min(kern), max(lib) - min(lib))
+        verdict = ("loses by more than the spread" if min(kern) - min(lib) > spread
+                   else "within the spread")
+        log(f"probe beside library {variant}: kernel ms {[round(t, 4) for t in kern]}, "
+            f"library ms {[round(t, 4) for t in lib]}, best {min(kern):.4f} vs {min(lib):.4f}: "
+            f"{verdict} ({spread:.4f})")
+        del probe
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+
+
 TRAJ_TIMES = {}
 
 
@@ -2749,8 +3120,10 @@ def main() -> int:
              "DSL": run_dsl_path, "bandwidth probe": lambda: run_bw_probe(report),
              "mesh path": run_mesh_path, "observables": run_observables_path,
              "density path": run_density_path, "mesh density path": run_mesh_density_path,
-             "variational": run_variational_path, "dynamics": run_dynamics_path,
-             "trajectories": run_trajectories_path, "stabilizer": run_stabilizer_path}
+             "variational": run_variational_path,
+             "variational mesh": run_variational_mesh_path, "dynamics": run_dynamics_path,
+             "trajectories": run_trajectories_path, "stabilizer": run_stabilizer_path,
+             "protocols": run_protocols_path}
 
     def since(counts, before):
         return {k: v - before.get(k, 0) for k, v in counts.items() if v > before.get(k, 0)}
@@ -2778,6 +3151,7 @@ def main() -> int:
             check(own > 0, f"the {label} never launched the {name} kernel")
 
     time_file_path_warm()  # after the paths' counts were read: not their work
+    time_probes_beside_library()
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()

@@ -13,9 +13,11 @@ the X terms of a step are one 1q layer).
 Error model (standard Trotter bounds): first order O(t^2/steps), Strang
 O(t^3/steps^2) per total evolution.
 
-:func:`lindblad_step_program` and :func:`lindblad_mcwf` need the noisy
-trajectory engine (models/trajectories.py), which is not ported yet: they
-raise ``NotImplementedError``.
+:func:`lindblad_evolve` integrates the master equation exactly on a
+:class:`~qubism_torch.core.density.DensityMatrix` or, past one buffer, on a
+:class:`~qubism_torch.parallel.density.ShardedDensityMatrix`;
+:func:`lindblad_step_program` and :func:`lindblad_mcwf` unravel it into
+trajectories of the noisy trajectory engine (models/trajectories.py).
 """
 
 from __future__ import annotations
@@ -308,7 +310,8 @@ def lindblad_evolve(rho, h_terms, collapse, t: float, steps: int,
                     order: int = 2, observables=None):
     """Integrate the Lindblad master equation ``drho/dt = -i[H, rho] +
     sum_a rate_a D_{L_a}(rho)`` on a
-    :class:`~qubism_torch.core.density.DensityMatrix`, in place.
+    :class:`~qubism_torch.core.density.DensityMatrix` or a
+    :class:`~qubism_torch.parallel.density.ShardedDensityMatrix`, in place.
 
     Strang-split into exact CPTP factors: per step, each dissipator's
     exact half-step channel (``apply_channel``), the unitary Trotter step

@@ -27,9 +27,13 @@ evaluated either in float64 numpy (:data:`BUILDERS`, for :func:`bind` and
 the adjoint engines' operands) or on 0-d torch tensors
 (:data:`TORCH_BUILDERS`, for autograd); both give the same matrices.
 
-The ``mesh=`` argument (the amplitude-sharded variational path of the JAX
-package, with its ``models/adjoint_mesh.py``) is not ported yet: it raises
-``NotImplementedError``.
+``mesh=`` (a sequence of torch devices, ``parallel.make_mesh``) shards the
+state's amplitudes over D = 2^d devices, the top d qubits selecting the
+shard (the JAX package's ``shard_map`` block layout, ``ShardedSim`` with no
+banks). The plain appliers, energies and the plain adjoint sweep run on
+the tuple of shards (one device is the 1-tuple), an op on device-bit
+targets combining the partner shards it mixes; the adjoint's kernel engine
+on a mesh is :mod:`.adjoint_mesh`.
 """
 
 from __future__ import annotations
@@ -239,11 +243,52 @@ class Ansatz:
 # ---------------------------------------------------------------------------
 
 
-def _no_mesh(mesh, what: str):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...): the mesh-sharded variational path "
-            f"(models/adjoint_mesh.py) is not ported yet")
+def _layout(mesh, n: int):
+    """(devices, d, m) of the amplitude layout: ``mesh`` a sequence of torch
+    devices (``parallel.make_mesh``; a device may repeat) holds D = 2^d
+    shards of m = n - d qubits, shard i on ``mesh[i]`` with the amplitudes
+    whose top d qubits read i (qubit q < d is bit d-1-q of i). ``None`` is
+    one shard on ``config.device``."""
+    if mesh is None:
+        return (A.device(),), 0, n
+    if isinstance(mesh, int):
+        raise TypeError(f"mesh must be a sequence of torch devices, as "
+                        f"parallel.make_mesh({mesh}) gives, not the int {mesh}")
+    devices = tuple(A.canonical_device(dv) for dv in mesh)
+    d = len(devices).bit_length() - 1
+    if not devices or (1 << d) != len(devices):
+        raise ValueError(f"mesh size {len(devices)} is not a power of two")
+    if n < d:
+        raise ValueError(f"need at least {d} qubits for {len(devices)} shards")
+    return devices, d, n - d
+
+
+def _zero_shards(devices, m: int) -> tuple:
+    """|0...0> as one complex64 shard of 2^m amplitudes per device."""
+    shards = tuple(torch.zeros(1 << m, dtype=torch.complex64, device=dv) for dv in devices)
+    shards[0][0] = 1
+    return shards
+
+
+def _peer(shards, i: int, j: int) -> torch.Tensor:
+    """Shard j as an operand of shard i's update, on shard i's device (a
+    peer copy when the two differ). Every read of one shard by another's
+    update goes through here."""
+    return shards[j].to(shards[i].device)
+
+
+def _field(i: int, qubits, d: int) -> int:
+    """The bits of shard index i at the device qubits ``qubits``, MSB
+    first."""
+    out = 0
+    for q in qubits:
+        out = (out << 1) | ((i >> (d - 1 - q)) & 1)
+    return out
+
+
+def _parity_signs(i: int, masks) -> np.ndarray:
+    """(-1)^popcount(i & mask) for each mask, float64."""
+    return np.array([1.0 - 2.0 * (bin(i & mk).count("1") & 1) for mk in masks])
 
 
 def _host_theta(theta) -> np.ndarray:
@@ -317,10 +362,61 @@ def _apply_kind(state, kind: str, u, targets, n: int) -> torch.Tensor:
     return _apply_dense(state, u, srt, n)
 
 
-def _apply_op(state, op, theta, n: int, dag: bool = False) -> torch.Tensor:
-    """One op (or its dagger) applied to ``state``, out of place."""
+def _permuted(u, perm):
+    return u.permute(perm) if isinstance(u, torch.Tensor) else u.transpose(perm)
+
+
+def _apply_kind_mesh(shards, kind: str, u, targets, n: int, d: int) -> tuple:
+    """``(kind, u)`` on ``targets`` applied to the shards of an n-qubit
+    state with d device bits, out of place. An op on local targets runs on
+    every shard. A diagonal picks each shard's sub-table by the shard's
+    device bits (no other shard is read). A dense op with g device-bit
+    targets is a block decomposition over them: ``out_a = sum_b U[a, b]``
+    applied on the local targets of the shard whose device bits read b,
+    the other bits being shard a's; a constant block that is zero is
+    skipped and one that is the identity is a copy."""
+    m = n - d
+    k = len(targets)
+    gsel = [j for j in range(k) if targets[j] < d]
+    if not gsel:
+        local = tuple(t - d for t in targets)
+        return tuple(_apply_kind(x, kind, u, local, m) for x in shards)
+    lsel = [j for j in range(k) if targets[j] >= d]
+    gq = [targets[j] for j in gsel]
+    local = tuple(targets[j] - d for j in lsel)
+    g, kl = len(gsel), len(lsel)
+    order = gsel + lsel
+    if kind == "diag":
+        tab = _permuted(u.reshape((2,) * k), order).reshape(1 << g, 1 << kl)
+        return tuple(_apply_kind(x, "diag", tab[_field(i, gq, d)], local, m)
+                     for i, x in enumerate(shards))
+    blocks = _permuted(u.reshape((2,) * (2 * k)), order + [k + j for j in order]).reshape(
+        1 << g, 1 << kl, 1 << g, 1 << kl)
+    masks = [1 << (d - 1 - q) for q in gq]
+    eye = np.eye(1 << kl)
+    out = []
+    for i in range(len(shards)):
+        a = _field(i, gq, d)
+        base = i & ~sum(masks)
+        acc = None
+        for b in range(1 << g):
+            j = base | sum(mk for r, mk in enumerate(masks) if (b >> (g - 1 - r)) & 1)
+            blk = blocks[a, :, b, :]
+            if isinstance(blk, np.ndarray) and not blk.any():
+                continue
+            term = _peer(shards, i, j)
+            if not (isinstance(blk, np.ndarray) and np.array_equal(blk, eye)):
+                term = _apply_kind(term, "dense", blk, local, m)
+            acc = term if acc is None else acc + term
+        out.append(acc)
+    return tuple(out)
+
+
+def _apply_op(shards, op, theta, n: int, d: int, dag: bool = False) -> tuple:
+    """One op (or its dagger) applied to the shards of a state (a 1-tuple
+    and d = 0 on one device), out of place."""
     kind, u = _op_matrix(op, theta, dag)
-    return _apply_kind(state, kind, u, op.targets, n)
+    return _apply_kind_mesh(shards, kind, u, op.targets, n, d)
 
 
 # ---------------------------------------------------------------------------
@@ -337,27 +433,45 @@ def _flip(state: torch.Tensor, f: int, n: int) -> torch.Tensor:
     return state.view(dims).flip(axes).reshape(-1)
 
 
-def _terms_energy(state: torch.Tensor, n: int, terms, paulis) -> torch.Tensor:
-    """Differentiable <psi| sum_j c_j P_j |psi> (a real 0-d tensor). Terms
-    are grouped by flip mask f: t(x) = conj(psi[x ^ f]) psi[x] is formed
-    once per group and summed down to the qubits of the group's sign masks,
-    and each term is a signed sum of that small table, times i^{#Y}."""
-    e = torch.zeros((), dtype=torch.float32, device=state.device)
+def _sign_sums(t: torch.Tensor, n: int, zs) -> torch.Tensor:
+    """sum_x t[x] (-1)^popcount(x & z) for each sign mask z of ``zs``: ``t``
+    summed down to the qubits of the masks' union, then one signed sum of
+    that small table per mask (a complex tensor of len(zs))."""
+    union = functools.reduce(operator.or_, zs, 0)
+    qubits = tuple(q for q in range(n) if (union >> (n - 1 - q)) & 1)
+    dims, axes = A.target_view(n, qubits)
+    drop = [a for a in range(len(dims)) if a not in axes]
+    r = t.view(dims).sum(dim=drop) if drop else t.view(dims)
+    k = len(qubits)
+    idx = np.arange(1 << k, dtype=np.int64)
+    # bit k-1-i of the table index is qubits[i] (bit n-1-qubits[i] of x)
+    local = [sum(1 << (k - 1 - i) for i, q in enumerate(qubits) if (z >> (n - 1 - q)) & 1)
+             for z in zs]
+    signs = np.stack([M._parity_sign(idx, m) for m in local])
+    return torch.from_numpy(signs).to(device=t.device, dtype=t.dtype) @ r.reshape(-1)
+
+
+def _terms_energy(shards, n: int, d: int, terms, paulis) -> torch.Tensor:
+    """Differentiable <psi| sum_j c_j P_j |psi> (a real 0-d tensor on the
+    first shard's device) of a sharded state (a 1-tuple and d = 0 on one
+    device). Terms are grouped by flip mask f: per shard i, t(x) =
+    conj(psi[x ^ f]) psi[x] is formed once per group from shard i and its
+    partner i ^ (f's device bits), each term is a signed sum of t (the
+    sign of its device bits a factor per shard), the shards' sums are
+    added, and the result is taken times i^{#Y}."""
+    m = n - d
+    low = (1 << m) - 1
+    dev = shards[0].device
+    e = torch.zeros((), dtype=torch.float32, device=dev)
     for f, idxs in M.group_terms(paulis).items():
-        t = _flip(state, f, n).conj() * state
         zs = [M.pauli_masks(paulis[j])[1] for j in idxs]
-        union = functools.reduce(operator.or_, zs, 0)
-        qubits = tuple(q for q in range(n) if (union >> (n - 1 - q)) & 1)
-        dims, axes = A.target_view(n, qubits)
-        drop = [a for a in range(len(dims)) if a not in axes]
-        r = t.view(dims).sum(dim=drop) if drop else t.view(dims)
-        k = len(qubits)
-        idx = np.arange(1 << k, dtype=np.int64)
-        # bit k-1-i of the table index is qubits[i] (bit n-1-qubits[i] of x)
-        local = [sum(1 << (k - 1 - i) for i, q in enumerate(qubits) if (z >> (n - 1 - q)) & 1)
-                 for z in zs]
-        signs = np.stack([M._parity_sign(idx, m) for m in local])
-        vals = torch.from_numpy(signs).to(device=state.device, dtype=t.dtype) @ r.reshape(-1)
+        vals = 0
+        for i, x in enumerate(shards):
+            t = _flip(_peer(shards, i, i ^ (f >> m)), f & low, m).conj() * x
+            v = _sign_sums(t, m, [z & low for z in zs])
+            if d:
+                v = v * torch.from_numpy(_parity_signs(i, [z >> m for z in zs])).to(v)
+            vals = vals + v.to(dev)
         for pos, j in enumerate(idxs):
             v = vals[pos]
             k_y = paulis[j].count("Y") % 4
@@ -380,31 +494,54 @@ def _device_theta(theta) -> torch.Tensor:
     return torch.from_numpy(np.asarray(theta, dtype=np.float32)).to(dev)
 
 
+def _sharded_state_fn(ansatz: Ansatz, mesh):
+    """``theta -> (shards, d)`` of :func:`state_fn` (one shard without a
+    mesh)."""
+    n = ansatz.n
+
+    def run(theta):
+        devices, d, m = _layout(mesh, n)
+        theta = _device_theta(theta)
+        shards = _zero_shards(devices, m)
+        for op in ansatz.ops:
+            shards = _apply_op(shards, op, theta, n, d)
+        return shards, d
+
+    _layout(mesh, n)  # refuse a bad mesh when the function is made
+    return run
+
+
 def state_fn(ansatz: Ansatz, mesh=None):
     """``theta -> state``: the differentiable state preparation, a complex64
     tensor of 2^n amplitudes on ``config.device`` (``theta`` a float32
-    tensor, which may require grad, or an array)."""
-    _no_mesh(mesh, "state_fn")
+    tensor, which may require grad, or an array).
 
-    def run(theta):
-        theta = _device_theta(theta)
-        state = A.zero_state(ansatz.n)
-        for op in ansatz.ops:
-            state = _apply_op(state, op, theta, ansatz.n)
-        return state
+    ``mesh`` (a sequence of torch devices, ``parallel.make_mesh``; a device
+    may repeat) shards the state's amplitudes over D = 2^d devices for the
+    whole pipeline: ``theta -> (shard_0, ..., shard_{D-1})``, shard i a
+    complex64 tensor of 2^(n-d) amplitudes on ``mesh[i]`` holding those
+    whose top d qubits read i, so ``torch.cat`` of the shards on one device
+    is the state. An op on device-bit targets reads only the partner
+    shards it mixes; autograd follows the copies between devices."""
+    run = _sharded_state_fn(ansatz, mesh)
 
-    return run
+    def state(theta):
+        shards, _ = run(theta)
+        return shards if mesh is not None else shards[0]
+
+    return state
 
 
 def energy_fn(ansatz: Ansatz, terms, constant: float = 0.0, mesh=None):
     """``theta -> <psi(theta)| sum_j c_j P_j |psi(theta)> + constant`` as a
-    differentiable 0-d float32 tensor. ``terms`` = [(coef, pauli), ...]."""
-    _no_mesh(mesh, "energy_fn")
+    differentiable 0-d float32 tensor. ``terms`` = [(coef, pauli), ...].
+    ``mesh`` shards the state (see :func:`state_fn`)."""
     paulis, _ = _check_terms(terms, ansatz.n)
-    run = state_fn(ansatz)
+    run = _sharded_state_fn(ansatz, mesh)
 
     def energy(theta):
-        return _terms_energy(run(theta), ansatz.n, terms, paulis) + float(constant)
+        shards, d = run(theta)
+        return _terms_energy(shards, ansatz.n, d, terms, paulis) + float(constant)
 
     return energy
 
@@ -517,30 +654,71 @@ def _builder_jvp(name: str, args, i: int) -> torch.Tensor:
     return torch.view_as_complex(du.contiguous())
 
 
-def _adjoint_bwd_step(op, theta: np.ndarray, phi, lam, g: np.ndarray, n: int):
-    """One reverse-sweep step: add this op's parameter gradient into ``g``
-    (float64, on the host), then un-apply the op from phi and lam. Returns
-    (phi', lam').
+def _pair_values(a, b, n: int, d: int, paulis) -> np.ndarray:
+    """<b|P_j|a> (complex128, i^{#Y} included) for each checked Pauli string
+    of two sharded states (1-tuples and d = 0 on one device). Per flip mask
+    f, shard i of ``a`` is walked with shard i ^ (f's device bits) of ``b``
+    by :func:`ops.measure.pauli_pair_sums` (which reads a partner on another
+    device chunk by chunk), each term's device bits give a sign per shard,
+    and the sums are added in float64 on the host."""
+    m = n - d
+    low = (1 << m) - 1
+    out = np.zeros(len(paulis), dtype=np.complex128)
+    for f, idxs in M.group_terms(paulis).items():
+        zs = [M.pauli_masks(paulis[j])[1] for j in idxs]
+        for i in range(len(a)):
+            sums = M.pauli_pair_sums(a[i], b[i ^ (f >> m)], m, f & low, [z & low for z in zs])
+            out[idxs] += sums * _parity_signs(i, [z >> m for z in zs])
+    return np.array([M._apply_iy(s.real, s.imag, p.count("Y")) for s, p in zip(out, paulis)])
+
+
+def _apply_pauli_sum(shards, terms, n: int, d: int) -> tuple:
+    """(sum_j c_j P_j)|psi> of a sharded state, as new shards: shard i of
+    P|psi> is P's local part applied (:func:`ops.measure.apply_pauli`) to
+    the partner shard i ^ (P's device flip bits), times (-i)^{#Y on device
+    bits} and the sign of i's device Z/Y bits."""
+    m = n - d
+    out = [None] * len(shards)
+    for coef, pauli in terms:
+        f, z, _ = M.pauli_masks(pauli)
+        phase = (-1j) ** (pauli[:d].count("Y") % 4)
+        for i in range(len(shards)):
+            term = M.apply_pauli(_peer(shards, i, i ^ (f >> m)), pauli[d:], m)
+            scale = complex(coef * phase * _parity_signs(i, [z >> m])[0])
+            out[i] = term.mul_(scale) if out[i] is None else out[i].add_(term, alpha=scale)
+    return tuple(torch.zeros_like(x) if y is None else y for x, y in zip(shards, out))
+
+
+def _vdot(a, b) -> complex:
+    """<a|b> of two sharded states, summed over the shards on the host."""
+    return sum(complex(torch.vdot(x, y)) for x, y in zip(a, b))
+
+
+def _adjoint_bwd_step(op, theta: np.ndarray, phi, lam, g: np.ndarray, n: int, d: int):
+    """One reverse-sweep step on sharded phi and lam (1-tuples and d = 0 on
+    one device): add this op's parameter gradient into ``g`` (float64, on
+    the host), then un-apply the op from phi and lam. Returns (phi', lam').
 
     One-parameter gates are Pauli exponentials U = e^{i eta} exp(-i s
     theta_j G) (:data:`_GEN`), so ``dU/dtheta |psi_before> = -i s G
     |psi_after>`` and the gradient is ``2 s Im <lam|G phi>``: one
-    :func:`ops.measure.apply_pauli_sum` and one inner product. Multi-parameter
+    :func:`_apply_pauli_sum` and one inner product. Multi-parameter
     builders (u3) take the dense derivative of the gate
     (:func:`_builder_jvp`)."""
     if isinstance(op, PGate) and op.name in _GEN and len(op.pidx) == 1:
-        gphi = M.apply_pauli_sum(phi, _gen_terms(op, n), n)
-        g[op.pidx[0]] += 2.0 * op.scale * float(torch.vdot(lam, gphi).imag)
+        gphi = _apply_pauli_sum(phi, _gen_terms(op, n), n, d)
+        g[op.pidx[0]] += 2.0 * op.scale * _vdot(lam, gphi).imag
         del gphi
-        return _apply_op(phi, op, theta, n, dag=True), _apply_op(lam, op, theta, n, dag=True)
-    phi = _apply_op(phi, op, theta, n, dag=True)  # psi before this op
+        return (_apply_op(phi, op, theta, n, d, dag=True),
+                _apply_op(lam, op, theta, n, d, dag=True))
+    phi = _apply_op(phi, op, theta, n, d, dag=True)  # psi before this op
     if isinstance(op, PGate):
         args = [op.scale * theta[j] for j in op.pidx]
         for li, j in enumerate(op.pidx):
             du = _builder_jvp(op.name, args, li)
-            dphi = _apply_kind(phi, _KIND[op.name], du, op.targets, n)
-            g[j] += op.scale * 2.0 * float(torch.vdot(lam, dphi).real)
-    return phi, _apply_op(lam, op, theta, n, dag=True)
+            dphi = _apply_kind_mesh(phi, _KIND[op.name], du, op.targets, n, d)
+            g[j] += op.scale * 2.0 * _vdot(lam, dphi).real
+    return phi, _apply_op(lam, op, theta, n, d, dag=True)
 
 
 def adjoint_value_and_grad_fn(ansatz: Ansatz, terms, constant: float = 0.0,
@@ -561,35 +739,55 @@ def adjoint_value_and_grad_fn(ansatz: Ansatz, terms, constant: float = 0.0,
     package picks its Pallas engine, and the plain sweep otherwise. The
     callable's ``_engine`` names the engine that runs.
 
+    ``mesh`` (see :func:`state_fn`) shards phi and lam over D devices.
+    ``"kernels"`` then runs :func:`.adjoint_mesh.mesh_adjoint_value_and_grad_fn`
+    (ValueError for an ansatz or a Hamiltonian it cannot lower: it never
+    runs the plain sweep in its place); ``"auto"`` tries it at n >= 14 and
+    falls back to the plain sweep on the shards only on that ValueError,
+    as the JAX package's router does; ``"plain"`` is the plain sweep on the
+    shards (``_engine`` "plain-mesh").
+
     ``segment_size`` is the JAX package's compile control (bounded jitted
     segments); eager torch has no such program, so it changes nothing.
     Energy and gradient come back as float32 CPU tensors."""
     del segment_size
-    _no_mesh(mesh, "adjoint_value_and_grad_fn")
     n = ansatz.n
     if engine not in ("auto", "plain", "kernels"):
         raise ValueError(f"engine must be auto|plain|kernels, got {engine!r}")
-    if engine != "plain":
+    if engine != "plain" and mesh is not None:
+        from .adjoint_mesh import mesh_adjoint_value_and_grad_fn
+
+        if engine == "kernels":
+            return mesh_adjoint_value_and_grad_fn(ansatz, terms, mesh, constant)
+        if n >= 14:
+            try:
+                return mesh_adjoint_value_and_grad_fn(ansatz, terms, mesh, constant)
+            except ValueError:
+                pass
+    elif engine != "plain":
         from .adjoint_engine import kernel_adjoint_value_and_grad_fn, supports
 
         if engine == "kernels" or (n >= 14 and supports(ansatz)):
             return kernel_adjoint_value_and_grad_fn(ansatz, terms, constant)
-    _, checked = _check_terms(terms, n)
+    paulis, checked = _check_terms(terms, n)
+    coefs = np.array([c for c, _ in checked])
+    _layout(mesh, n)  # refuse a bad mesh when the function is made
 
     def vg(theta):
         th = _host_theta(theta)
+        devices, d, m = _layout(mesh, n)
         with torch.no_grad():
-            phi = A.zero_state(n)
+            phi = _zero_shards(devices, m)
             for op in ansatz.ops:
-                phi = _apply_op(phi, op, th, n)
-            e = M.expectation_pauli_sum(phi, n, checked) + float(constant)
-            lam = M.apply_pauli_sum(phi, checked, n)
+                phi = _apply_op(phi, op, th, n, d)
+            e = float(coefs @ _pair_values(phi, phi, n, d, paulis).real) + float(constant)
+            lam = _apply_pauli_sum(phi, checked, n, d)
             g = np.zeros(ansatz.num_params)
             for op in reversed(ansatz.ops):
-                phi, lam = _adjoint_bwd_step(op, th, phi, lam, g, n)
+                phi, lam = _adjoint_bwd_step(op, th, phi, lam, g, n, d)
         return torch.tensor(e, dtype=torch.float32), torch.from_numpy(g.astype(np.float32))
 
-    vg._engine = "plain"
+    vg._engine = "plain" if mesh is None else "plain-mesh"
     return vg
 
 

@@ -196,3 +196,53 @@ def test_density_program_mesh_lifts_cap():
     small = DensityProgram(parse_openqasm("<t>", "qreg q[1];"), mesh=2)
     with pytest.raises(ValueError, match="shards"):
         small.run()  # 2 qubits of rho over 2 shards leave 1 local qubit
+
+
+# -- lindblad_evolve on the sharded rho (tests/test_density_mesh.py's two cases) ----
+
+_X = np.array([[0, 1], [1, 0]], dtype=complex)
+_SM = np.array([[0, 1], [0, 0]], dtype=complex)
+
+
+def test_lindblad_evolve_on_mesh_matches_dense():
+    """models.dynamics.lindblad_evolve on 8 shards: the observables of every
+    step against the port's DensityMatrix (1e-6) and the JAX package's
+    lindblad_evolve on its DensityMatrix (2e-5, the JAX file's tolerance);
+    the trace stays 1 (exact CPTP factors)."""
+    from qubism_torch.models.dynamics import lindblad_evolve
+    from qubism_tpu.core.density import DensityMatrix as JDensity
+    from qubism_tpu.models.dynamics import lindblad_evolve as jax_lindblad
+
+    n = 3
+    h = [(0.7, "XII"), (0.4, "ZZI"), (0.3, "IXZ")]
+    collapse = [(0.5, _SM, 0), (0.3, _SM, 2)]
+    obs = ["ZII", "IIZ", "XII"]
+    prep = [Prim(_X, (q,)) for q in (0, 2)]
+    _, vd = lindblad_evolve(DensityMatrix(n).apply(prep), h, collapse, t=0.8, steps=16,
+                            observables=obs)
+    rs, vs = lindblad_evolve(ShardedDensityMatrix(n, make_mesh(8)).apply(prep), h, collapse,
+                             t=0.8, steps=16, observables=obs)
+    _, vj = jax_lindblad(JDensity(n).apply([JPrim(_X, (q,)) for q in (0, 2)]), h, collapse,
+                         t=0.8, steps=16, observables=obs)
+    assert np.abs(np.asarray(vd) - np.asarray(vs)).max() < TOL
+    assert np.abs(np.asarray(vj) - np.asarray(vs)).max() < 2e-5
+    assert abs(rs.trace() - 1.0) < 1e-5
+
+
+def test_lindblad_mesh_vs_mcwf():
+    """The sharded exact integration (4 shards) against the port's MCWF
+    unraveling, lindblad_mcwf with 600 trajectories: the final values
+    within 5 standard errors + 0.02, the JAX file's bound."""
+    from qubism_torch.models.dynamics import lindblad_evolve, lindblad_mcwf
+
+    n = 2
+    h = [(0.6, "XI"), (0.35, "ZZ")]
+    collapse = [(0.4, _SM, 1)]
+    obs = ["ZI", "IZ"]
+    prep = [Prim(_X, (0,)), Prim(_X, (1,))]
+    rs = ShardedDensityMatrix(n, make_mesh(4)).apply(prep)
+    _, vs = lindblad_evolve(rs, h, collapse, t=1.0, steps=20, observables=obs)
+    _, est = lindblad_mcwf(n, prep, h, collapse, t=1.0, steps=20, ntraj=600,
+                           observables=obs, seed=1)
+    for j, (m, se) in enumerate(est):
+        assert abs(m - vs[-1][j]) < 5 * se + 0.02, (obs[j], m, vs[-1][j])

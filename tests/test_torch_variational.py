@@ -345,14 +345,36 @@ def test_vqe_rejects_bad_grad():
 
 
 def test_mesh_is_not_ported():
+    """The five entry points take ``mesh=`` (a sequence of devices, here
+    two shards of the CPU device) and give what they give on one device;
+    an int in place of the devices is refused."""
+    from qubism_torch.parallel import make_mesh
+
     ans = TV.hea_ansatz(2, 1)
-    terms = [(1.0, "ZZ")]
+    terms = [(1.0, "ZZ"), (0.5, "XY")]
+    theta = thetas(ans.num_params, 4)
+    mesh = make_mesh(2)
+    with torch.no_grad():
+        psi = tstate(ans, theta)
+        shards = TV.state_fn(ans, mesh=mesh)(theta)
+    assert len(shards) == 2
+    assert np.abs(torch.cat(shards).numpy() - psi).max() < 1e-6
+    e0 = float(TV.energy_fn(ans, terms)(theta))
+    assert abs(float(TV.energy_fn(ans, terms, mesh=mesh)(theta)) - e0) < 1e-6
+    for fn in (TV.value_and_grad_fn, TV.adjoint_value_and_grad_fn):
+        want = fn(ans, terms)(theta)
+        got = fn(ans, terms, mesh=mesh)(theta)
+        assert abs(float(got[0]) - float(want[0])) < 1e-6
+        assert np.abs(got[1].numpy() - want[1].numpy()).max() < 1e-5
+    th0, h0 = TV.vqe_minimize(ans, terms, theta, steps=3)
+    th1, h1 = TV.vqe_minimize(ans, terms, theta, steps=3, mesh=mesh)
+    assert np.abs(h0.numpy() - h1.numpy()).max() < 1e-5
     calls = [lambda: TV.state_fn(ans, mesh=8), lambda: TV.energy_fn(ans, terms, mesh=8),
              lambda: TV.value_and_grad_fn(ans, terms, mesh=8),
              lambda: TV.adjoint_value_and_grad_fn(ans, terms, mesh=8),
              lambda: TV.vqe_minimize(ans, terms, np.zeros(8), steps=1, mesh=8)]
     for call in calls:
-        with pytest.raises(NotImplementedError, match="adjoint_mesh.py"):
+        with pytest.raises(TypeError, match="make_mesh"):
             call()
 
 
