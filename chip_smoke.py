@@ -17,7 +17,7 @@ target view, diag beside one ``mul_`` by its 2^n diagonal, each library
 call first held against the plain version; a lane or diag call prepares
 and uploads its operands, so
 their lines also give the kernel on operands prepared once). Then it drives
-fourteen paths, each with the launch counters set to 0 just before it and read
+fifteen paths, each with the launch counters set to 0 just before it and read
 just after (a ``phase <path>: diag launches by (factors, widest k)`` line
 gives the shapes of its diag passes). The device-operand modes of K1, K4
 and K3 (``gate_dev``, ``layer1q_dev``, ``lane_dev``: the matrix read from
@@ -119,6 +119,21 @@ at n = 28 (``time n=28 gate dev`` etc.). The paths:
   a warm-up), its torch ops in total and per gate or layer step (the
   card's own count of kernels from ``torch.profiler`` beside S1's chain),
   its synchronising calls, measurement rounds and peak;
+* the MPS backend (plain torch and ``torch.linalg.svd``, no kernel of
+  K1-K6; the light-cone oracles run K1/K2), at the JAX package's bench.py
+  shapes: GHZ-40 on ``MPSSim(40, chi=4)`` with 512 samples (trunc_error
+  exactly 0.0, every row equal, the mean within 0.0663 of 0.5);
+  brickwork-100 at depth 4 and chi 16 with 256 samples (trunc_error 0.0,
+  ``<Z_0>`` within 1e-4 of a 12-qubit light-cone oracle on the card); 64
+  noisy trajectories of it under ``depolarizing:0.001`` (P(q0 = 1) within
+  3 sigma + 0.04 of the oracle's); adaptive chi on brickwork-60 at depth 6
+  from chi 4 (budget 1e-6, max_chi 64; the final chi, its rollbacks,
+  ``<Z_0>`` against the oracle); and the CLI (teleportation with
+  ``--dump-state`` and shots, a 64-qubit GHZ on the stabilizer and mps
+  backends). Each part prints its first-call and warm seconds, its tape
+  rows by opcode, torch ops (per row of the tape replay), synchronising
+  calls (``torch.cuda.set_sync_debug_mode("warn")``), SVDs by shape, the
+  ops that left a tensor on the CPU (no SVD or product may) and its peak;
 * the protocol models: linear XEB of brickwork-30 (8192 samples) against
   2^n sum p^2 - 1 summed on the card; grouped shot estimation on the
   QAOA-28 state (4096 shots a group) against ``expectation_pauli_sum``;
@@ -219,6 +234,15 @@ N_STAB, STAB_SHOTS = 1000, 8192
 N_FRAMES, FRAMES_T, FRAMES_P = 300, 8192, 0.001
 QEC_D, QEC_ROUNDS, QEC_P, QEC_T = 501, 8, 0.003, 4096
 N_FALLBACK, FALLBACK_T, FALLBACK_P = 1000, 64, 0.01
+#: the mps path, at the JAX package's benchmark shapes (bench.py): GHZ-40's
+#: chi and samples; brickwork-100's depth, chi and samples, the light-cone
+#: oracle's width; the noisy trajectories and their noise; adaptive chi on
+#: brickwork-60 at depth 6 (budget, ceiling); the CLI's GHZ width
+N_MPS_GHZ, MPS_GHZ_CHI, MPS_GHZ_SHOTS = 40, 4, 512
+N_MPS_BW, MPS_BW_DEPTH, MPS_BW_CHI, MPS_BW_SHOTS, MPS_CONE = 100, 4, 16, 256, 12
+MPS_NOISY_T, MPS_NOISE = 64, "depolarizing:0.001"
+N_MPS_ADAPT, MPS_ADAPT_DEPTH, MPS_BUDGET, MPS_MAX_CHI = 60, 6, 1e-6, 64
+N_MPS_CLI = 64
 #: device memory the fused engine may take beside one state and its batch's
 #: operands (the lane operand, the sample's row masses, small tables); and
 #: the most the vmapped engine's peak may grow from one batch to many
@@ -269,6 +293,8 @@ PATH_KERNELS = {
     "trajectories": ("gate", "lane", "layer1q"),
     # plain torch, as the reference's stabilizer engine is plain XLA
     "stabilizer": (),
+    # plain torch and the library SVD, as the reference's MPS engine is plain XLA
+    "mps": (),
     "protocols": ("gate", "diag", "lane", "layer1q"),
 }
 #: the port's kernels of the variational path, by their names in the
@@ -2826,6 +2852,241 @@ def run_stabilizer_path():
     log(f"stabilizer host reads in the CLI runs: {Tb.stats['syncs']}")
 
 
+def mps_opcodes(tapes):
+    """Tape rows by opcode name, over (code, ...) tapes or packed codes."""
+    import collections
+
+    from qubism_torch.mps import engine as E
+
+    names = {E._OP_2Q: "2q", E._OP_SHIFT_R: "shift_r", E._OP_SHIFT_L: "shift_l",
+             E._OP_1Q: "1q", E._OP_NOP: "nop", E._OP_K1Q: "k1q"}
+    out = collections.Counter()
+    for codes in tapes:
+        out.update(names[int(c)] for c in codes)
+    return dict(sorted(out.items()))
+
+
+def mps_instrumented(fn):
+    """``fn()`` once with its torch ops counted (utils/profiling), the
+    shapes of its SVDs, the names of ops that left a tensor on the CPU, and
+    its synchronising calls counted by ``torch.cuda.set_sync_debug_mode``
+    ("warn"): (out, {"ops", "svd", "cpu_ops", "syncs"})."""
+    import collections
+    import warnings
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from qubism_torch.utils.profiling import count_ops
+
+    class Seen(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.svd = collections.Counter()
+            self.cpu = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.__name__
+            if "svd" in name:
+                self.svd[tuple(args[0].shape)] += 1
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            if not func.is_view and any(isinstance(o, torch.Tensor) and o.device.type == "cpu"
+                                        for o in outs):
+                self.cpu[name] += 1
+            return out
+
+    syncs = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if DEV == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with Seen() as seen:
+                out, ops = count_ops(fn)
+            sync()
+        finally:
+            if DEV == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
+    heavy = [k for k in seen.cpu if any(s in k for s in ("svd", "mm", "matmul", "einsum"))]
+    check(not heavy if DEV == "cuda" else True, f"mps: {heavy} ran on the CPU")
+    return out, {"ops": ops, "svd": dict(seen.svd), "cpu_ops": dict(seen.cpu), "syncs": syncs}
+
+
+def mps_report(label, rows, info, first, warm, peak, extra=""):
+    """One line of a part: its seconds, rows, ops (and per row: of the
+    tape replay alone where ``info`` has ``tape_ops``), syncs, SVDs, peak."""
+    nrows = sum(rows.values())
+    per = (f"tape replay {info['tape_ops']} ops, {info['tape_ops'] / max(nrows, 1):.1f} per row"
+           if "tape_ops" in info else f"{info['ops'] / max(nrows, 1):.1f} per row")
+    log(f"mps {label}: first call {first:.3f} s, warm {warm:.3f} s, tape rows {nrows} {rows}, "
+        f"torch ops {info['ops']} ({per}), synchronising "
+        f"calls {info['syncs']}, SVDs by shape {info['svd']} ({sum(info['svd'].values())} in "
+        f"all), ops with a CPU result {info['cpu_ops']}, peak {peak:.3f} GiB" + extra)
+
+
+def light_cone_z0(prims, k):
+    """<Z_0> of the circuit from its gates inside the first ``k`` qubits
+    (exact while qubit 0's backward light cone stays inside them), by the
+    dense CompiledCircuit on the device."""
+    from qubism_torch.ops.apply import zero_state
+    from qubism_torch.ops.fusion import CompiledCircuit
+    from qubism_torch.ops.measure import expectation_pauli
+
+    cone = [p for p in prims if all(t < k for t in p.targets)]
+    st = CompiledCircuit(k, cone, optimize=False)(zero_state(k))
+    return expectation_pauli(st, k, "Z" + "I" * (k - 1))
+
+
+def run_mps_path():
+    """The MPS engine (plain torch with a library SVD: the reference's MPS
+    engine is plain XLA), at the JAX package's bench.py shapes: GHZ-40 at
+    chi = 4 with 512 samples; brickwork-100 at depth 4, chi = 16 with 256
+    samples against a 12-qubit light-cone oracle; 64 noisy trajectories of
+    that brickwork under depolarizing:0.001; adaptive chi on brickwork-60
+    at depth 6 from chi = 4 (budget 1e-6, max_chi 64); and the CLI
+    (teleportation with a dump and shots, a 64-qubit GHZ on the stabilizer
+    and mps backends). Each part prints its tape rows by opcode, torch ops
+    per row, synchronising calls, SVD shapes and peak."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from qubism_torch.cli import eval_file
+    from qubism_torch.core.gates import Prim
+    from qubism_torch.models.circuits import brickwork_prims, brickwork_qasm
+    from qubism_torch.mps import MPSSim, MPSTrajectoryProgram
+    from qubism_torch.mps.engine import build_tape
+    from qubism_torch.qasm.parser import parse_openqasm
+    from qubism_torch.utils.profiling import count_ops
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "mps: TF32 matmuls are on")
+    h = np.array([[1, 1], [1, -1]], dtype=np.complex128) / np.sqrt(2)
+    cx = np.eye(4, dtype=np.complex128)[[0, 1, 3, 2]]
+
+    def part(label, fn, rows, reps=3, replay=None):
+        """First call (timed, its peak), one instrumented call, the best of
+        ``reps`` warm calls; ``replay`` counts the ops of the tape alone."""
+        (out, first), peak = peak_gib(lambda: timed_call(fn))
+        _, info = mps_instrumented(fn)
+        if replay is not None:
+            info["tape_ops"] = count_ops(replay)[1]
+        warm = min(timed_call(fn)[1] for _ in range(reps))
+        return out, info, first, warm, peak
+
+    # GHZ-40 (bench.py:600-623)
+    n = N_MPS_GHZ
+    ghz = [Prim(h, (0,))] + [Prim(cx, (q, q + 1)) for q in range(n - 1)]
+
+    def ghz_run():
+        sim = MPSSim(n, chi=MPS_GHZ_CHI, seed=0).apply(ghz)
+        return sim, sim.sample(MPS_GHZ_SHOTS)
+
+    rows = mps_opcodes([[c for c, _, _ in build_tape(ghz, 0)[0]]])
+    (sim, bits), info, first, warm, peak = part(
+        f"ghz{n}", ghz_run, rows, replay=lambda: MPSSim(n, chi=MPS_GHZ_CHI).apply(ghz))
+    check(sim.sites.is_cuda == (DEV == "cuda"), f"mps ghz{n}: sites on {sim.sites.device}")
+    mean = float(bits[:, 0].mean())
+    mps_report(f"ghz{n} chi={MPS_GHZ_CHI} + {MPS_GHZ_SHOTS} samples", rows, info, first, warm,
+               peak, f"; trunc_error {sim.trunc_error}, rows all equal "
+               f"{bool((bits == bits[:, :1]).all())}, mean {mean:.4f} (|mean - 0.5| < 0.0663)")
+    check(sim.trunc_error == 0.0, f"mps ghz{n}: trunc_error {sim.trunc_error}")
+    check(bits.shape == (MPS_GHZ_SHOTS, n) and (bits == bits[:, :1]).all(),
+          f"mps ghz{n}: sample rows differ")
+    check(abs(mean - 0.5) < 0.0663, f"mps ghz{n}: mean {mean}")
+
+    # brickwork-100 at depth 4 (bench.py:626-662)
+    n, depth = N_MPS_BW, MPS_BW_DEPTH
+    prims = brickwork_prims(n, depth, seed=5)
+    z0_want = light_cone_z0(prims, MPS_CONE)
+
+    def bw_run():
+        sim = MPSSim(n, chi=MPS_BW_CHI, seed=0).apply(prims)
+        return sim, sim.sample(MPS_BW_SHOTS)
+
+    rows = mps_opcodes([[c for c, _, _ in build_tape(prims, 0)[0]]])
+    (sim, bits), info, first, warm, peak = part(
+        f"brickwork{n}", bw_run, rows, replay=lambda: MPSSim(n, chi=MPS_BW_CHI).apply(prims))
+    z0 = sim.expectation("Z" + "I" * (n - 1))
+    mps_report(f"brickwork{n} depth {depth} chi={MPS_BW_CHI} + {MPS_BW_SHOTS} samples", rows,
+               info, first, warm, peak, f"; trunc_error {sim.trunc_error}, <Z0> {z0:.6f} "
+               f"against the {MPS_CONE}-qubit light cone's {z0_want:.6f} (1e-4), samples "
+               f"{bits.shape}")
+    check(sim.sites.is_cuda == (DEV == "cuda"), f"mps brickwork{n}: sites on {sim.sites.device}")
+    check(sim.trunc_error == 0.0, f"mps brickwork{n}: trunc_error {sim.trunc_error}")
+    check(abs(z0 - z0_want) < 1e-4, f"mps brickwork{n}: <Z0> {z0} vs {z0_want}")
+    check(bits.shape == (MPS_BW_SHOTS, n), f"mps brickwork{n}: samples {bits.shape}")
+
+    # 64 noisy trajectories of it (bench.py:664-692)
+    src = brickwork_qasm(n, depth, seed=5)
+    prog = MPSTrajectoryProgram(parse_openqasm(os.path.join(EXAMPLES, "<chip_smoke>.qasm"), src),
+                                noise=MPS_NOISE, chi=MPS_BW_CHI)
+    rows = mps_opcodes([t[0] for t in prog._tapes()[0]])
+
+    def noisy_run(seed=1):
+        return prog.run_vals(MPS_NOISY_T, seed=seed)["c"]
+
+    mbits, info, first, warm, peak = part(f"noisy brickwork{n}", noisy_run, rows, reps=1)
+    on_card = sorted({dev for _, dev in prog._dev_tapes})
+    p0 = float(mbits[:, 0].mean())
+    p0_want = (1.0 - float(z0_want)) / 2.0
+    sigma = math.sqrt(p0_want * (1 - p0_want) / MPS_NOISY_T)
+    mps_report(f"noisy brickwork{n} {MPS_NOISE} x {MPS_NOISY_T} trajectories", rows, info, first,
+               warm, peak, f"; {warm:.3f} s per {MPS_NOISY_T} trajectories, stochastic sites "
+               f"{prog.sites}, operands on {on_card}, P(q0 = 1) {p0:.4f} against "
+               f"{p0_want:.4f} (3 sigma + 0.04 = {3 * sigma + 0.04:.4f})")
+    check(all(d.startswith(DEV) for d in on_card), f"mps noisy: operands on {on_card}")
+    check(abs(p0 - p0_want) < 3 * sigma + 0.04, f"mps noisy brickwork{n}: {p0} vs {p0_want}")
+
+    # adaptive chi at a bond the card notices
+    n, depth = N_MPS_ADAPT, MPS_ADAPT_DEPTH
+    prims = brickwork_prims(n, depth, seed=7)
+    z0_want = light_cone_z0(prims, MPS_CONE)
+
+    def adapt_run():
+        return MPSSim(n, chi=4, seed=0, trunc_budget=MPS_BUDGET, max_chi=MPS_MAX_CHI).apply(prims)
+
+    rows = mps_opcodes([[c for c, _, _ in build_tape(prims, 0)[0]]])
+    sim, info, first, warm, peak = part(f"adaptive brickwork{n}", adapt_run, rows, reps=1)
+    z0 = sim.expectation("Z" + "I" * (n - 1))
+    mps_report(f"adaptive brickwork{n} depth {depth} from chi=4 (budget {MPS_BUDGET:g}, "
+               f"max_chi {MPS_MAX_CHI})", rows, info, first, warm, peak,
+               f"; final chi {sim.chi}, rollbacks {int(math.log2(sim.chi // 4))} (each a rerun "
+               f"of the tape at twice the chi), trunc_error {sim.trunc_error:.3e}, <Z0> "
+               f"{z0:.6f} against the light cone's {z0_want:.6f}")
+    check(sim.chi <= MPS_MAX_CHI and sim.trunc_error <= MPS_BUDGET,
+          f"mps adaptive: chi {sim.chi}, trunc_error {sim.trunc_error}")
+    check(abs(z0 - z0_want) < 1e-4, f"mps adaptive: <Z0> {z0} vs {z0_want}")
+
+    # the CLI (tests/test_cli.py:237-279)
+    out = io.StringIO()
+    seen = {}
+    (rc, secs) = timed_call(lambda: eval_file(
+        os.path.join(EXAMPLES, "teleportation.qasm"), seed=1, backend="mps", chi=4,
+        dump_state=True, shots=64, out=out, inspect=lambda st: seen.update(sim=st[0])))
+    text = out.getvalue()
+    log(f"mps cli teleportation.qasm --backend mps --chi 4 --dump-state --shots 64: rc {rc}, "
+        f"{secs:.3f} s, sites on {seen['sim'].sites.device}, "
+        + " | ".join(ln for ln in text.splitlines() if ln.startswith(("MPS of", "  |", "CReg"))))
+    check(rc == 0 and "mps backend" in text and "chi=4" in text and "Counts for state vector q"
+          in text and seen["sim"].sites.is_cuda == (DEV == "cuda"), f"mps cli: rc {rc}")
+    n = N_MPS_CLI
+    src = "\n".join(["qreg q[%d];" % n, "U(pi/2, 0, pi) q[0];"]
+                    + [f"CX q[{k}], q[{k + 1}];" for k in range(n - 1)]) + "\n"
+    for backend, kw in (("stabilizer", {}), ("mps", {"chi": 4})):
+        out = io.StringIO()
+        rc, secs = timed_call(lambda: eval_file("<ghz>.qasm", source=src, seed=0, shots=32,
+                                                backend=backend, out=out, **kw))
+        rows = [ln for ln in out.getvalue().splitlines() if ln.startswith("  |")]
+        ok = rc == 0 and all(r.strip().startswith(("|" + "0" * n + ">", "|" + "1" * n + ">"))
+                             for r in rows)
+        log(f"mps cli ghz{n} --backend {backend} --shots 32: rc {rc}, {secs:.3f} s, "
+            f"{len(rows)} distinct rows, all GHZ outcomes {ok}")
+        check(ok, f"mps cli ghz{n} {backend}: rc {rc}")
+
+
 #: seconds per trajectory of the timed runs, by engine and program
 def run_protocols_path():
     """The protocol models on the card's engines: linear XEB of the
@@ -3123,7 +3384,7 @@ def main() -> int:
              "variational": run_variational_path,
              "variational mesh": run_variational_mesh_path, "dynamics": run_dynamics_path,
              "trajectories": run_trajectories_path, "stabilizer": run_stabilizer_path,
-             "protocols": run_protocols_path}
+             "mps": run_mps_path, "protocols": run_protocols_path}
 
     def since(counts, before):
         return {k: v - before.get(k, 0) for k, v in counts.items() if v > before.get(k, 0)}

@@ -13,7 +13,9 @@ Two surfaces, as in the JAX package (``import qubism_torch as qt``):
    trajectories (:class:`TrajectoryProgram`), ``--backend density --noise``
    for the exact density engine, ``--backend stabilizer`` for Clifford
    circuits at 1000+ qubits on the tableau engine, :class:`StabilizerSim`
-   and :class:`StabilizerTrajectoryProgram`), and the REPL with no file.
+   and :class:`StabilizerTrajectoryProgram`; ``--backend mps`` for
+   bounded-entanglement circuits at 100+ qubits, :class:`MPSSim` and
+   :class:`MPSTrajectoryProgram`), and the REPL with no file.
 
 Both run on one NVIDIA Hopper GPU through hand-written CUDA kernels for the
 state-vector passes (ops/kernels.py, csrc/). Importing the package imports
@@ -60,5 +62,7 @@ from .run.noisy import (  # noqa: F401
     parse_noise_spec,
 )
 from .stabilizer import StabilizerSim, StabilizerTrajectoryProgram  # noqa: F401
+from .mps import MPSSim  # noqa: F401
+from .mps.noise import MPSTrajectoryProgram  # noqa: F401
 
 __version__ = "0.1.0"

@@ -16,11 +16,11 @@ counts over the classical registers, ``--observable`` as mean +- stderr,
 (the exact density engine, on one device or over ``--mesh D``),
 ``--backend stabilizer`` (the Clifford tableau engine: ``--shots``,
 ``--dump-state``, ``--observable``; with ``--noise`` / ``--trajectories``
-noisy Clifford trajectories on Pauli frames or tableaux),
-``--reference-compat``, ``-I``, ``--include-base`` and ``--verbose``. The
-flags of the JAX package's CLI whose engines are not ported yet are parsed
-and exit with code 2 and "not ported yet": ``--backend mps``, ``--chi``,
-``--trunc-budget`` and ``--max-chi``.
+noisy Clifford trajectories on Pauli frames or tableaux), ``--backend mps``
+with ``--chi``, ``--trunc-budget`` and ``--max-chi`` (the matrix-product-state
+engine; with ``--noise`` / ``--trajectories`` noisy MPS trajectories),
+``--reference-compat``, ``-I``, ``--include-base`` and ``--verbose``: every
+flag of the JAX package's CLI.
 """
 
 from __future__ import annotations
@@ -39,25 +39,6 @@ from .qasm.parser import (
 )
 from .run.interpreter import Interpreter, run_program
 from .run.progstate import ProgState, QasmRuntimeError, blank_state
-
-
-#: flags of the JAX package's CLI whose engines are not ported yet: parsed,
-#: then refused by :func:`_unported`
-_UNPORTED_FLAGS = {
-    "--chi": dict(type=int, metavar="X"),
-    "--trunc-budget": dict(type=float, metavar="W"),
-    "--max-chi": dict(type=int, metavar="X"),
-}
-
-
-def _unported(args) -> str | None:
-    """The first flag of ``args`` that names an engine not ported yet."""
-    if args.backend == "mps":
-        return f"--backend {args.backend}"
-    for flag in _UNPORTED_FLAGS:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            return flag
-    return None
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -81,11 +62,27 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="simulation engine: the dense state-vector engine "
                         "(default; with --noise it runs noisy trajectories), "
                         "the Clifford stabilizer-tableau engine (1000+ "
-                        "qubits; with --noise, Pauli-channel trajectories) "
-                        "or the exact density-matrix engine "
+                        "qubits; with --noise, Pauli-channel trajectories), "
+                        "the matrix-product-state engine (bounded-entanglement "
+                        "circuits at 100+ qubits, see --chi; with --noise, MPS "
+                        "trajectories) or the exact density-matrix engine "
                         "(open-system: combine with --noise; 4^n amplitudes, "
                         "n <= 14 on one device, shard past that with "
-                        "--mesh). mps is not ported yet")
+                        "--mesh)")
+    p.add_argument("--chi", type=int, default=32, metavar="X",
+                   help="MPS bond dimension cap (--backend mps): simulation "
+                        "is exact while the circuit's entanglement fits "
+                        "(default 32)")
+    p.add_argument("--trunc-budget", type=float, default=None, metavar="W",
+                   help="adaptive MPS bond dimension (--backend mps, "
+                        "non-trajectory runs): start at --chi and DOUBLE it "
+                        "whenever an apply would push the accumulated "
+                        "truncation weight past W (roll back and retry), up "
+                        "to --max-chi; exceeding the budget at --max-chi "
+                        "errors instead of returning a wrong spectrum")
+    p.add_argument("--max-chi", type=int, default=256, metavar="X",
+                   help="adaptive-chi growth ceiling for --trunc-budget "
+                        "(default 256)")
     p.add_argument("--noise", metavar="SPEC", default=None,
                    help="circuit-level noise model, e.g. 'depolarizing:0.01' "
                         "or 'ad:0.05,pd:0.02' (channels: depolarizing, "
@@ -111,8 +108,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    metavar="PAULI",
                    help="print <P> for a Pauli string over the declared "
                         "qubits (e.g. ZZI; repeatable)")
-    for flag, kw in _UNPORTED_FLAGS.items():
-        p.add_argument(flag, default=None, help="not ported yet", **kw)
     p.add_argument("--compile", action="store_true", dest="compile_mode",
                    help="run the program as fused segments of the compiled "
                         "engine (registers are laid out in one state vector "
@@ -164,7 +159,8 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
               inspect=None, compile_mode: bool = False, fuse_width: int = 5,
               mesh=None, observables=(), backend: str = "statevector",
               noise: str | None = None, trajectories: int | None = None,
-              traj_engine: str = "vmap") -> int:
+              traj_engine: str = "vmap", chi: int = 32,
+              trunc_budget: float | None = None, max_chi: int = 256) -> int:
     """Evaluate a file (reference ``evalFile``, Main.hs:23-32). Returns the
     exit code. ``source``, when given, is parsed as the text of ``path``
     (includes resolve relative to it) instead of reading the file;
@@ -181,12 +177,17 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
     under the ``noise`` spec, on one device or sharded over ``mesh``;
     ``inspect`` then sees ``(rho, cregs)``. ``backend="stabilizer"`` runs
     the tableau engine (:class:`~qubism_torch.stabilizer.StabilizerProgram`;
-    ``inspect`` sees ``(sim, cregs)``; a ``mesh`` exits 2). ``noise`` or
+    ``inspect`` sees ``(sim, cregs)``; a ``mesh`` exits 2), ``backend="mps"``
+    the matrix-product-state engine (:class:`~qubism_torch.mps.MPSProgram`
+    at bond cap ``chi``, growing it under ``trunc_budget`` up to
+    ``max_chi``; ``inspect`` sees ``(sim, cregs)``; a ``mesh`` exits 2, a
+    prim wider than 2 qubits or a broken budget exits 1). ``noise`` or
     ``trajectories`` runs ``trajectories`` noisy trajectories
     (:class:`~qubism_torch.run.noisy.TrajectoryProgram`, by ``traj_engine``,
-    or :class:`~qubism_torch.stabilizer.StabilizerTrajectoryProgram` on the
-    stabilizer backend; the batch split over ``mesh``) and prints the
-    counts over the classical registers and each observable as mean +-
+    :class:`~qubism_torch.stabilizer.StabilizerTrajectoryProgram` on the
+    stabilizer backend, :class:`~qubism_torch.mps.MPSTrajectoryProgram` at
+    ``chi`` on the mps backend; the batch split over ``mesh``) and prints
+    the counts over the classical registers and each observable as mean +-
     stderr; ``inspect`` is not called."""
     out = out or sys.stdout
     if source is None:
@@ -208,9 +209,6 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
     except RuntimeError as e:
         print(f"qubism: {e}", file=out)
         return 2
-    if backend not in ("statevector", "density", "stabilizer"):
-        print(f"qubism: --backend {backend}: not ported yet", file=out)
-        return 2
     try:
         if backend == "density":
             rc, ps = _run_density(ast, noise, mesh, compile_mode or trajectories,
@@ -219,13 +217,27 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
                 return rc
         elif noise is not None or trajectories is not None:
             rc = _run_trajectories(ast, noise, trajectories, traj_engine, mesh,
-                                   compile_mode, seed, shots, observables, out, backend)
+                                   compile_mode, seed, shots, observables, out, backend, chi)
             if rc:
                 return rc
             print("Done.", file=out)
             return 0
         elif backend == "stabilizer":
-            rc, ps = _run_stabilizer(ast, mesh, seed, dump_state, shots, observables, out)
+            from .stabilizer import NotCliffordError, StabilizerProgram
+
+            rc, ps = _run_sim_program(backend, lambda: StabilizerProgram(ast),
+                                      NotCliffordError, mesh, seed, dump_state, shots,
+                                      observables, out)
+            if rc:
+                return rc
+        elif backend == "mps":
+            from .mps import MPSProgram, NotAdjacentError
+
+            rc, ps = _run_sim_program(
+                backend, lambda: MPSProgram(ast, chi=chi, trunc_budget=trunc_budget,
+                                            max_chi=max_chi),
+                (NotAdjacentError, FloatingPointError), mesh, seed, dump_state, shots,
+                observables, out)
             if rc:
                 return rc
         elif mesh:
@@ -280,11 +292,12 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
 
 
 def _run_trajectories(ast, noise, trajectories, traj_engine, mesh, compile_mode, seed,
-                      shots, observables, out, backend="statevector") -> int:
+                      shots, observables, out, backend="statevector", chi=32) -> int:
     """Trajectory mode: run the program as noisy trajectories (Clifford
-    ones on the stabilizer backend), print the counts over the classical
-    registers and the observables as mean +- stderr, as the JAX package's
-    CLI does. Returns the exit code."""
+    ones on the stabilizer backend, MPS ones on the mps backend), print the
+    counts over the classical registers and the observables as mean +-
+    stderr, as the JAX package's CLI does. Returns the exit code."""
+    from .mps import MPSTrajectoryProgram, NotAdjacentError
     from .run.noisy import TrajectoryProgram, resolve_traj_mesh
     from .run.traj_fused import FusedUnsupported
     from .stabilizer import NotCliffordError, StabilizerTrajectoryProgram
@@ -297,8 +310,12 @@ def _run_trajectories(ast, noise, trajectories, traj_engine, mesh, compile_mode,
     # are embarrassingly parallel; no amplitude sharding)
     try:
         resolve_traj_mesh(mesh)
-        cls = StabilizerTrajectoryProgram if backend == "stabilizer" else TrajectoryProgram
-        prog = cls(ast, noise=noise)
+        if backend == "stabilizer":
+            prog = StabilizerTrajectoryProgram(ast, noise=noise)
+        elif backend == "mps":
+            prog = MPSTrajectoryProgram(ast, noise=noise, chi=chi)
+        else:
+            prog = TrajectoryProgram(ast, noise=noise)
     except ValueError as e:
         print(f"qubism: {e}", file=out)
         return 2
@@ -323,6 +340,9 @@ def _run_trajectories(ast, noise, trajectories, traj_engine, mesh, compile_mode,
         return 2
     except NotCliffordError as e:
         print(f"qubism: stabilizer trajectories: {e}", file=out)
+        return 1
+    except NotAdjacentError as e:
+        print(f"qubism: mps trajectories: {e}", file=out)
         return 1
     if prog.creg_names:
         print(f"Counts over classical registers ({ntraj} trajectories):", file=out)
@@ -374,34 +394,38 @@ def _run_density(ast, noise, mesh, compile_mode, seed, dump_state, shots, observ
     return 0, (rho, cregs)
 
 
-def _run_stabilizer(ast, mesh, seed, dump_state, shots, observables, out):
-    """The stabilizer backend in file mode: run the program on the tableau
-    engine, print its dump, shot counts and observables as the JAX
-    package's ``--backend stabilizer`` does. Returns (exit code, (sim,
-    cregs))."""
-    import collections
-
-    from .stabilizer import NotCliffordError, StabilizerProgram
-
+def _run_sim_program(backend, make, errors, mesh, seed, dump_state, shots, observables, out):
+    """The stabilizer and mps backends in file mode: run the program that
+    ``make()`` builds (a StabilizerProgram or an MPSProgram), print its
+    dump, shot counts and observables as the JAX package's ``--backend``
+    does; ``errors`` (a non-Clifford gate, an unroutable prim, a broken
+    truncation budget) exit 1. Returns (exit code, (sim, cregs))."""
     if mesh:
         print("qubism: --mesh applies to the state-vector and density backends", file=out)
         return 2, None
-    prog = StabilizerProgram(ast)
+    prog = make()
     try:
         sim, cregs = prog.run(seed=seed, dump_writer=out.write)
-    except NotCliffordError as e:
-        print(f"qubism: stabilizer backend: {e}", file=out)
+    except errors as e:
+        print(f"qubism: {backend} backend: {e}", file=out)
         return 1, None
     if dump_state:
         out.write(prog._pretty(sim, cregs))
     if shots and prog.n:
-        counts = collections.Counter("".join("01"[b] for b in row) for row in sim.sample(shots))
-        _print_basis_counts(counts, "(x)".join(prog.layout), shots, out)
+        _print_basis_counts(_sampled_bit_counts(sim.sample(shots)), "(x)".join(prog.layout),
+                            shots, out)
     if observables and prog.n:
         rc = _print_observables(observables, sim.expectation, out)
         if rc:
             return rc, None
     return 0, (sim, cregs)
+
+
+def _sampled_bit_counts(bits):
+    """(shots, n) 0/1 sample rows -> Counter of basis bitstrings."""
+    import collections
+
+    return collections.Counter("".join("01"[b] for b in row) for row in bits)
 
 
 def _run_mesh(prog, devices, seed, dump_state, shots, out):
@@ -446,7 +470,9 @@ def _print_observables(observables, compute, out) -> int:
     """Print one ``<P> = value`` line per --observable; ``compute(pauli)``
     returns a float or a (mean, stderr) pair. Returns 0 on success, 2 on a
     rejected Pauli string, 1 on a non-Clifford gate met by the stabilizer
-    trajectories (the exit code their counts give)."""
+    trajectories or a prim the MPS trajectories cannot route (the exit code
+    their counts give)."""
+    from .mps import NotAdjacentError
     from .stabilizer import NotCliffordError
 
     for pauli in observables:
@@ -454,6 +480,9 @@ def _print_observables(observables, compute, out) -> int:
             val = compute(pauli.upper())
         except NotCliffordError as e:
             print(f"qubism: stabilizer trajectories: {e}", file=out)
+            return 1
+        except NotAdjacentError as e:
+            print(f"qubism: mps trajectories: {e}", file=out)
             return 1
         except ValueError as e:
             print(f"qubism: --observable: {e}", file=out)
@@ -590,10 +619,6 @@ def main(argv=None) -> int:
     if rest:
         print(f"qubism: {' '.join(rest)}: not ported yet", file=sys.stderr)
         return 2
-    missing = _unported(args)
-    if missing:
-        print(f"qubism: {missing}: not ported yet", file=sys.stderr)
-        return 2
     _apply_flags(args)
     if args.file:
         return eval_file(args.file, seed=args.seed, dump_state=args.dump_state,
@@ -601,7 +626,8 @@ def main(argv=None) -> int:
                          fuse_width=args.fuse_width, mesh=args.mesh,
                          observables=args.observable, backend=args.backend,
                          noise=args.noise, trajectories=args.trajectories,
-                         traj_engine=args.traj_engine)
+                         traj_engine=args.traj_engine, chi=args.chi,
+                         trunc_budget=args.trunc_budget, max_chi=args.max_chi)
     try:
         from .ops.apply import device
 

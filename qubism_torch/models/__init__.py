@@ -62,6 +62,7 @@ from .circuits import (  # noqa: F401
     prims_qasm,
     qaoa_maxcut_energy,
     qaoa_prims,
+    qaoa_qasm,
     qft_prims,
     qft_qasm,
     ring_edges,

@@ -5,7 +5,8 @@ QFT, GHZ, random brickwork, Grover, the W state, QAOA MaxCut and phase
 estimation, plus :func:`prims_qasm`, which exports any such stream to
 OpenQASM. OpenQASM 2.0 text for the file path: the families of
 BASELINE.json's configs (QFT, GHZ, random brickwork, the widened Cuccaro
-adder). Each text includes ``qelib1.inc``, so it is parsed under a path
+adder), and Grover (ccx-cascade oracle with ancillas), the W state, QAOA
+MaxCut and phase estimation in qelib1 gates. Each text includes ``qelib1.inc``, so it is parsed under a path
 inside ``examples/``. Host numpy only, as in qubism_tpu/models/circuits.py.
 """
 
@@ -334,4 +335,111 @@ def adder_qasm(width: int, a_val: int, b_val: int) -> str:
     for i in range(width):
         lines.append(f"measure b[{i}] -> ans[{i}];")
     lines.append(f"measure cout[0] -> ans[{width}];")
+    return "\n".join(lines) + "\n"
+
+
+def grover_qasm(n: int, marked: int, iterations: int | None = None,
+                measure: bool = True) -> str:
+    """Grover search for basis state ``marked`` on n qubits via the
+    textbook oracle + diffusion circuit: multi-controlled Z built from a
+    ccx cascade over n-2 ancillas (qelib1 gates only, so the file runs
+    through the interpreter unchanged). ``examples/grover.qasm`` is
+    ``grover_qasm(3, 5)``."""
+    if not 2 <= n:
+        raise ValueError("grover needs n >= 2")
+    if iterations is None:
+        iterations = max(1, int(math.floor(math.pi / 4 * math.sqrt(1 << n))))
+    anc = max(n - 2, 0)
+    lines = ["OPENQASM 2.0;", 'include "qelib1.inc";', f"qreg q[{n}];"]
+    if anc:
+        lines.append(f"qreg anc[{anc}];")
+    lines.append(f"creg c[{n}];")
+
+    def mcz() -> list[str]:
+        """Z on q[n-1] controlled on q[0..n-2] (an h sandwich turns the
+        cascade's final cx/ccx into cz)."""
+        if n == 2:
+            return ["cz q[0],q[1];"]
+        out = [f"h q[{n - 1}];", "ccx q[0],q[1],anc[0];"]
+        for i in range(2, n - 1):
+            out.append(f"ccx q[{i}],anc[{i - 2}],anc[{i - 1}];")
+        out.append(f"cx anc[{n - 3}],q[{n - 1}];")
+        for i in range(n - 2, 1, -1):
+            out.append(f"ccx q[{i}],anc[{i - 2}],anc[{i - 1}];")
+        out.append("ccx q[0],q[1],anc[0];")
+        out.append(f"h q[{n - 1}];")
+        return out
+
+    for q in range(n):
+        lines.append(f"h q[{q}];")
+    for _ in range(iterations):
+        # oracle: phase-flip |marked>
+        offs = [q for q in range(n) if not ((marked >> (n - 1 - q)) & 1)]
+        for q in offs:
+            lines.append(f"x q[{q}];")
+        lines.extend(mcz())
+        for q in offs:
+            lines.append(f"x q[{q}];")
+        # diffusion: reflect about the uniform state
+        for q in range(n):
+            lines.append(f"h q[{q}];")
+            lines.append(f"x q[{q}];")
+        lines.extend(mcz())
+        for q in range(n):
+            lines.append(f"x q[{q}];")
+            lines.append(f"h q[{q}];")
+    if measure:
+        lines.append("measure q -> c;")
+    return "\n".join(lines) + "\n"
+
+
+def w_state_qasm(n: int, measure: bool = True) -> str:
+    """The :func:`w_state_prims` cascade in qelib1 gates: cu3(theta,0,0) =
+    controlled-ry splits the excitation onto q[i+1], cx moves it off q[i]."""
+    lines = ["OPENQASM 2.0;", 'include "qelib1.inc";', f"qreg q[{n}];",
+             f"creg c[{n}];", "x q[0];"]
+    for i, (c, s) in enumerate(_w_angles(n)):
+        theta = 2.0 * math.atan2(s, c)
+        lines.append(f"cu3({theta:.12f},0,0) q[{i}],q[{i + 1}];")
+        lines.append(f"cx q[{i + 1}],q[{i}];")
+    if measure:
+        lines.append("measure q -> c;")
+    return "\n".join(lines) + "\n"
+
+
+def qaoa_qasm(n: int, edges, gammas, betas, measure: bool = True) -> str:
+    """:func:`qaoa_prims` in qelib1 gates (the cost up to a global phase)."""
+    lines = ["OPENQASM 2.0;", 'include "qelib1.inc";', f"qreg q[{n}];",
+             f"creg c[{n}];"]
+    for q in range(n):
+        lines.append(f"h q[{q}];")
+    for gamma, beta in zip(gammas, betas):
+        for i, j in edges:
+            # e^{-i gamma Z_i Z_j} = cx; rz(2 gamma); cx  (global phase off)
+            lines.append(f"cx q[{i}],q[{j}];")
+            lines.append(f"rz({2 * gamma:.12f}) q[{j}];")
+            lines.append(f"cx q[{i}],q[{j}];")
+        for q in range(n):
+            lines.append(f"rx({2 * beta:.12f}) q[{q}];")
+    if measure:
+        lines.append("measure q -> c;")
+    return "\n".join(lines) + "\n"
+
+
+def qpe_qasm(t: int, phi: float, measure: bool = True) -> str:
+    """:func:`qpe_prims` in qelib1 gates: counting register ``q[t]``, the
+    eigenqubit ``e[0]``."""
+    lines = ["OPENQASM 2.0;", 'include "qelib1.inc";', f"qreg q[{t}];",
+             "qreg e[1];", f"creg c[{t}];", "x e[0];"]
+    for q in range(t):
+        lines.append(f"h q[{q}];")
+    for q in range(t):
+        lam = 2.0 * math.pi * phi * (1 << q)
+        lines.append(f"cu1({lam:.12f}) q[{q}],e[0];")
+    for q in range(t - 1, -1, -1):
+        for j in range(t - 1, q, -1):
+            lines.append(f"cu1(-pi/{1 << (j - q)}) q[{j}],q[{q}];")
+        lines.append(f"h q[{q}];")
+    if measure:
+        lines.append("measure q -> c;")
     return "\n".join(lines) + "\n"

@@ -2,12 +2,17 @@
 the four execution modes, unfused registers, ``--dtype``, the REPL
 transcripts of tests/test_cli.py (the same input lines to both ``Repl``s,
 the same output text up to the sign of printed zeros), the atomic failed
-line with the kept state tensor unchanged bit for bit, each flag that is
-not ported yet exiting 2 and naming itself, trajectory mode (``--noise``,
+line with the kept state tensor unchanged bit for bit, every flag of the
+JAX CLI run through both CLIs, trajectory mode (``--noise``,
 ``--trajectories``, ``--traj-engine``, ``--observable`` as mean +- stderr,
-``--mesh``) and ``--backend stabilizer`` (file mode with ``--shots`` /
+``--mesh``), ``--backend stabilizer`` (file mode with ``--shots`` /
 ``--dump-state`` / ``--observable``, noisy Clifford trajectories, and its
-exit codes) against the JAX CLI's text and messages."""
+exit codes) and ``--backend mps`` with ``--chi``, ``--trunc-budget`` and
+``--max-chi`` (the dump, shots, observables, MPS trajectories and every
+refusal) against the JAX CLI's text and messages. Numbers the MPS dump
+prints (norm, trunc_error, bond entropies) are held within 1e-4, the rest
+word for word; counts drawn from each package's own random stream are held
+by their format, total and the program's law."""
 
 import io
 import os
@@ -72,8 +77,8 @@ def same_transcript(lines, **kw):
 
 
 @pytest.mark.parametrize("kw", [{}, {"compile_mode": True}, {"mesh": 2},
-                                {"backend": "density"}],
-                         ids=["file", "compile", "mesh", "density"])
+                                {"backend": "density"}, {"backend": "mps", "chi": 4}],
+                         ids=["file", "compile", "mesh", "density", "mps"])
 def test_observable_flag_all_modes(kw, tmp_path):
     f = tmp_path / "bell.qasm"
     f.write_text(BELL)
@@ -139,7 +144,7 @@ def test_dtype_flag(capsys):
         tcli.main([path, "--dtype", "float16"])
 
 
-# -- flags that are not ported yet -------------------------------------------------
+# -- every flag of the JAX CLI through both CLIs ---------------------------------------
 
 
 def counts_block(text):
@@ -156,10 +161,11 @@ def counts_block(text):
     return head, rows, lines[i:]
 
 
-#: named None: the trajectory flags, ported since; the case runs both CLIs
-#: and holds the port's output against the JAX CLI's (the counts come from
-#: each package's own random stream, so the rows are held by their format
-#: and total, and the text otherwise word for word)
+#: every row runs both CLIs (``named`` labels the flags that were the last
+#: to be ported, the mps backend's) and holds the port's output against the
+#: JAX CLI's: the counts come from each package's own random stream, so the
+#: rows are held by their format and total, and the text otherwise word for
+#: word
 @pytest.mark.parametrize("argv,named", [
     (["--backend", "mps"], "--backend mps"),
     (["--noise", "dep:0.1"], None),
@@ -172,10 +178,6 @@ def test_unported_flags_exit_2(argv, named, capsys):
     jcli.build_arg_parser().parse_args([path] + argv)  # the JAX CLI knows the flag
     trc = tcli.main([path, "--seed", "3"] + argv)
     ours = capsys.readouterr()
-    if named is not None:
-        assert trc == 2
-        assert ours.err == f"qubism: {named}: not ported yet\n" and ours.out == ""
-        return
     jrc = jcli.main([path, "--seed", "3"] + argv)
     theirs = capsys.readouterr()
     assert trc == jrc and ours.err == theirs.err == ""
@@ -241,16 +243,200 @@ def test_trajectory_observables_and_mesh(tmp_path):
 
 
 def test_eval_file_refuses_unported_engines(tmp_path):
-    out = io.StringIO()
-    assert tcli.eval_file("<t>", source="qreg q[1];", out=out, backend="mps") == 2
-    assert out.getvalue() == "qubism: --backend mps: not ported yet\n"
-    # --noise is ported: a program with no creg and no observable is refused
-    # as the JAX CLI refuses it
+    """No engine is refused any more: --backend mps runs as the JAX CLI runs
+    it (with ``source=`` too), and a trajectory program with no creg and no
+    observable is refused as the JAX CLI refuses it."""
     f = tmp_path / "t.qasm"
-    f.write_text("qreg q[1];")
+    f.write_text("qreg q[1];\nU(pi, 0, pi) q[0];\n")
+    (trc, tout), (jrc, jout) = eval_both(f, backend="mps", dump_state=True, chi=2)
+    assert trc == jrc == 0 and tout == jout and tout.endswith("Done.\n")
+    out = io.StringIO()
+    assert tcli.eval_file("<t>", source=f.read_text(), out=out, backend="mps", chi=2,
+                          dump_state=True) == 0
+    assert out.getvalue() == tout
     (trc, tout), (jrc, jout) = eval_both(f, noise="dep:0.1")
     assert trc == jrc == 2 and tout == jout
     assert tout.startswith("qubism: trajectory mode reports classical-register counts")
+    for backend in ("mps", "stabilizer"):
+        (trc, tout), (jrc, jout) = eval_both(f, noise="dep:0.1", backend=backend)
+        assert trc == jrc == 2 and tout == jout
+
+
+# -- --backend mps (tests/test_cli.py's mps cases) ----------------------------------------
+
+
+def numbers(text):
+    """The text with its decimal numbers cut out, and the numbers."""
+    pat = r"-?\d+\.\d+(?:e[-+]\d+)?"
+    return re.sub(pat, "#", text), [float(x) for x in re.findall(pat, text)]
+
+
+def same_dump(tout, jout, tol=1e-4):
+    """Word for word but the numbers, which agree within ``tol``."""
+    (ttext, tnum), (jtext, jnum) = numbers(tout), numbers(jout)
+    assert ttext == jtext
+    assert len(tnum) == len(jnum) and all(abs(a - b) <= tol for a, b in zip(tnum, jnum))
+
+
+BELL_MEASURED = "qreg q[2]; creg c[2];\nU(pi/2,0,pi) q[0]; CX q[0],q[1];\nmeasure q -> c;\n"
+
+
+def test_mps_backend_flag(tmp_path):
+    """A measured Bell pair at --chi 4 with --dump-state and --shots: each
+    package's outcome is its own draw, so the creg and the counts row are
+    held by the law (all 64 shots on the measured outcome), the rest of the
+    dump word for word with its numbers within 1e-4."""
+    f = tmp_path / "bell.qasm"
+    f.write_text(BELL_MEASURED)
+    outs = eval_both(f, seed=0, backend="mps", shots=64, dump_state=True, chi=4)
+    for rc, out in outs:
+        assert rc == 0 and out.endswith("Done.\n")
+        assert "mps backend" in out and "chi=4" in out
+        bit = re.search(r"CReg c\[2\] = (00|11)", out).group(1)
+        assert f"  |{bit}>: 64\n" in out
+    (_, tout), (_, jout) = outs
+    mask = lambda t: re.sub(r"(= |\|)(00|11)", r"\1bb", t)  # noqa: E731
+    same_dump(mask(tout), mask(jout))
+
+
+def test_mps_backend_nonclifford_ok(tmp_path):
+    """T gates run on the MPS backend: |<0|HTH|0>|^2 = cos^2(pi/8) ~ 0.854
+    of 200 shots (the reference's > 130), in both CLIs' formats."""
+    f = tmp_path / "t.qasm"
+    f.write_text("qreg q[1];\nU(pi/2,0,pi) q[0]; U(0,0,pi/4) q[0]; U(pi/2,0,pi) q[0];\n")
+    for rc, out in eval_both(f, seed=0, backend="mps", shots=200, chi=2):
+        head, rows, tail = counts_block(out)
+        assert rc == 0 and head == "Counts for state vector q (200 shots):" and tail == ["Done."]
+        assert set(rows) <= {"|0>", "|1>"} and sum(rows.values()) == 200 and rows["|0>"] > 130
+
+
+def test_large_n_programs_skip_dense_allocation(tmp_path):
+    """A 64-qubit GHZ runs on the stabilizer and mps backends of both CLIs
+    (no 2^64 allocation), every shot all zeros or all ones."""
+    f = tmp_path / "ghz64.qasm"
+    f.write_text("\n".join(["qreg q[64];", "U(pi/2,0,pi) q[0];"]
+                           + [f"CX q[{i}],q[{i + 1}];" for i in range(63)]) + "\n")
+    for backend, kw in (("stabilizer", {}), ("mps", {"chi": 4})):
+        for rc, out in eval_both(f, seed=0, backend=backend, shots=32, **kw):
+            head, rows, tail = counts_block(out)
+            assert rc == 0 and tail == ["Done."], (backend, out)
+            assert set(rows) <= {"|" + "0" * 64 + ">", "|" + "1" * 64 + ">"}
+            assert sum(rows.values()) == 32
+
+
+def test_mps_noise_flag(tmp_path):
+    """MPS trajectories: bit flips on a GHZ-3 (the counts' format and total,
+    both GHZ rows seen), phase damping through the K rows, and the
+    unknown-channel refusal word for word."""
+    f = tmp_path / "mn.qasm"
+    f.write_text(f"qreg q[3]; creg c[3];\n{GHZ_H} q[0];\nCX q[0], q[1];\nCX q[1], q[2];\n"
+                 "measure q -> c;\n")
+    for rc, out in eval_both(f, seed=0, backend="mps", chi=4, noise="bitflip:0.05",
+                             trajectories=256):
+        head, rows, tail = counts_block(out)
+        assert rc == 0 and head == "Counts over classical registers (256 trajectories):"
+        assert sum(rows.values()) == 256 and tail == ["Done."]
+        assert "c=000" in rows and "c=111" in rows
+    for rc, out in eval_both(f, seed=0, backend="mps", chi=4, noise="pd:0.1", trajectories=64):
+        assert rc == 0 and counts_block(out)[0].endswith("(64 trajectories):")
+    (trc, tout), (jrc, jout) = eval_both(f, backend="mps", noise="nope:0.1")
+    assert trc == jrc == 2 and tout == jout and "unknown noise channel" in tout
+
+
+GHZ_H = "U(1.5707963267948966, 0, 3.141592653589793)"
+
+
+def test_mps_observables(tmp_path):
+    """--observable on the mps backend: Bell <ZZ> = <XX> = 1, <ZI> = 0, the
+    same text; in trajectory mode mean +- stderr in both formats."""
+    f = tmp_path / "bell.qasm"
+    f.write_text(BELL)
+    (trc, tout), (jrc, jout) = eval_both(f, seed=0, backend="mps", chi=4,
+                                         observables=["ZZ", "XX", "ZI"])
+    assert trc == jrc == 0 and unsigned_zeros(tout) == unsigned_zeros(jout)
+    assert tout.startswith("<ZZ> = 1.000000\n<XX> = 1.000000\n")
+    (trc, tout), (jrc, jout) = eval_both(f, seed=2, backend="mps", chi=4, noise="dep:0.05",
+                                         trajectories=64, observables=["ZZ", "xi"])
+    pat = r"<ZZ> = -?\d\.\d{6} \+- \d\.\d{6}\n<XI> = -?\d\.\d{6} \+- \d\.\d{6}\nDone\.\n"
+    assert trc == jrc == 0 and re.fullmatch(pat, tout) and re.fullmatch(pat, jout)
+    # a bad string: the same refusal
+    (trc, tout), (jrc, jout) = eval_both(f, backend="mps", observables=["ZZZ"])
+    assert trc == jrc == 2 and tout == jout
+
+
+def test_mps_trunc_budget_flags(tmp_path):
+    """--trunc-budget grows chi from --chi: the dump of brickwork-10 at
+    depth 8 is the JAX CLI's (trunc_error=0.000e+00 in both); a budget the
+    --max-chi cannot hold exits 1 with the JAX message, its discarded
+    weight within a relative 1e-3."""
+    import shutil
+
+    from qubism_torch.models.circuits import brickwork_qasm
+
+    shutil.copy(os.path.join(EXAMPLES, "qelib1.inc"), tmp_path / "qelib1.inc")
+    f = tmp_path / "bw.qasm"
+    f.write_text(brickwork_qasm(10, 8, seed=11) + "\n")
+    (trc, tout), (jrc, jout) = eval_both(f, seed=0, backend="mps", chi=4, trunc_budget=1e-6,
+                                         max_chi=64, dump_state=True)
+    assert trc == jrc == 0 and "trunc_error=0.000e+00" in tout
+    mask = lambda t: re.sub(r"CReg c\[10\] = [01]+", "CReg c[10] = #", t)  # noqa: E731
+    same_dump(mask(tout), mask(jout))
+    (trc, tout), (jrc, jout) = eval_both(f, seed=0, backend="mps", chi=4, trunc_budget=1e-9,
+                                         max_chi=4)
+    assert trc == jrc == 1 and "trunc_budget" in tout
+    pat = r"discarded ([0-9.e+-]+) of"
+    (ttext, tw), (jtext, jw) = ((re.sub(pat, "#", t), float(re.search(pat, t).group(1)))
+                                for t in (tout, jout))
+    assert ttext == jtext and abs(tw - jw) <= 1e-3 * jw
+    assert tout.startswith("qubism: mps backend: trunc_budget 1e-09 exceeded at max_chi=4 ")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mesh=2), dict(noise="dep:0.1", traj_engine="fused"),
+    dict(noise="dep:0.1", traj_engine="fused", mesh=2), dict(noise="dep:0.1@r[0]"),
+], ids=["mesh", "fused", "fused mesh", "bad target"])
+def test_mps_refusals_match_jax(kw, tmp_path):
+    f = tmp_path / "t.qasm"
+    f.write_text(BELL_MEASURED)
+    (trc, tout), (jrc, jout) = eval_both(f, seed=1, backend="mps", chi=4, **kw)
+    assert trc == jrc == 2 and tout == jout and tout.startswith("qubism: ")
+
+
+@pytest.mark.parametrize("where", ["program", "trajectories", "observables"])
+def test_mps_not_adjacent_exits_1(where, tmp_path, monkeypatch):
+    """A prim the MPS engine cannot route (none reaches it from QASM, whose
+    gates elaborate to 1q and 2q prims: it is raised in its place here)
+    exits 1 with the JAX CLI's message in each of the three places that
+    catch it."""
+    from qubism_torch import mps as tmps
+    from qubism_tpu import mps as jmps
+    from qubism_tpu.mps import noise as jnoise
+
+    def raiser(err):
+        def f(*a, **k):
+            raise err("wide prim")
+        return f
+
+    if where == "program":
+        monkeypatch.setattr(tmps.MPSProgram, "run", raiser(tmps.NotAdjacentError))
+        monkeypatch.setattr(jmps.MPSProgram, "run", raiser(jmps.NotAdjacentError))
+        kw = {}
+    else:
+        monkeypatch.setattr(tmps.MPSTrajectoryProgram, "run_vals", raiser(tmps.NotAdjacentError))
+        monkeypatch.setattr(tmps.MPSTrajectoryProgram, "expectations",
+                            raiser(tmps.NotAdjacentError))
+        monkeypatch.setattr(jnoise.MPSTrajectoryProgram, "run_vals",
+                            raiser(jmps.NotAdjacentError))
+        monkeypatch.setattr(jnoise.MPSTrajectoryProgram, "expectations",
+                            raiser(jmps.NotAdjacentError))
+        kw = dict(noise="dep:0.1")
+        if where == "observables":
+            kw["observables"] = ["ZZ"]
+    f = tmp_path / "t.qasm"
+    f.write_text(BELL if where == "observables" else BELL_MEASURED)
+    (trc, tout), (jrc, jout) = eval_both(f, seed=1, backend="mps", chi=4, **kw)
+    assert trc == jrc == 1 and tout == jout
+    assert tout == f"qubism: mps {'backend' if where == 'program' else 'trajectories'}: wide prim\n"
 
 
 # -- --backend stabilizer ------------------------------------------------------------

@@ -310,9 +310,12 @@ def test_main_flags(capsys, monkeypatch):
     path = os.path.join(EXAMPLES, "rippleCarryAdder.qasm")
     assert tcli.main([path, "--seed", "1", "--dump-state"]) == 0
     assert "CReg ans[5] = 00001" in capsys.readouterr().out
-    for argv in ([path, "--backend", "mps"], [path, "--no-such-flag"]):
-        assert tcli.main(argv) == 2
-        assert "not ported yet" in capsys.readouterr().err
+    assert tcli.main([path, "--no-such-flag"]) == 2
+    assert "not ported yet" in capsys.readouterr().err
+    # the mps backend is ported: the adder's registers through the MPS engine
+    assert tcli.main([path, "--seed", "1", "--backend", "mps", "--chi", "4", "--dump-state"]) == 0
+    out = capsys.readouterr().out
+    assert "Dump of the internal state (mps backend)" in out and "CReg ans[5] = 00001" in out
     # trajectory mode is ported: counts over the classical registers
     for argv, ntraj in (([path, "--trajectories", "8"], 8), ([path, "--noise", "dep:0.1"], 512)):
         assert tcli.main(argv) == 0
