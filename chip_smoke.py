@@ -142,18 +142,24 @@ at n = 28 (``time n=28 gate dev`` etc.). The paths:
   trajectories); 2-qubit RB against the depolarizing law; simultaneous RB
   on 100 qubits (Pauli frames); ZNE on GHZ-12. Each line gives its seconds.
 
-After the paths, the stream probes that read behind their library call
-(``phase_256x1``, ``copy_256x1``, ``read_256x4``, ``write_256x4``) are timed
-beside it, alternately in one window, three rounds (``probe beside library``
-lines).
+After the paths, the stream probes are timed beside their library call,
+alternately in one window, three rounds (``probe beside library`` lines):
+the copy kernel at 256x1, 256x4 and 1024x4 beside ``copy_``,
+``read_256x4`` beside ``torch.sum``, and ``phase_256x1`` and
+``write_256x4``, still on the older stream kernel, beside ``mul_`` and
+``fill_``.
 
 The butterfly kernel (K6) is held against its plain version at 2^20 and
 2^30 amplitudes in 2, 4 and 16 banks and timed at 2^28 beside one
-``torch.matmul``. The two probe kernels are held against their plain
-versions like the others (copy and write exactly; the read probe's sum within 1e-5 of the sum
-of magnitudes). The counters show which kernels each path went through. The
-30- and 28-qubit programs are then run again with every fused pass also
-applied by the plain versions, and the states compared.
+``torch.matmul``. The probe kernels are held against their plain
+versions like the others (copy and write exactly; the read probe's sum
+within 1e-5 of the sum of magnitudes; copy and read also on states of 2,
+8 and 512 amplitudes, smaller than a tile, and with a tile of 96 x 2
+float4s; three reads of one state bit for bit equal; the read of a state
+whose parts all lie in [0.25, 0.75) within 2e-7 of its float64 sum). The
+counters show which kernels each path went through. The 30- and 28-qubit
+programs are then run again with every fused pass also applied by the
+plain versions, and the states compared.
 
 The last line of standard output is one JSON object,
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
@@ -259,8 +265,11 @@ N_LIND_MESH, LIND_RATE, LIND_T, LIND_STEPS = 14, 0.8, 0.5, 8
 #: circuits, simultaneous RB's width, ZNE's width
 XEB_SHOTS, EST_SHOTS = 8192, 4096
 N_SHADOW, SHADOW_T, N_MLAE, QV_M, QV_CIRCUITS, N_SRB, N_ZNE = 20, 2048, 16, 6, 5, 100, 12
-#: the stream probes timed beside their library call in one window
-PROBE_LIBRARY_ROWS = ("phase_256x1", "copy_256x1", "read_256x4", "write_256x4")
+#: the stream probes timed beside their library call in one window: the
+#: copy kernel in every geometry, the read kernel, and phase and write (P1,
+#: P5) as the window's control
+PROBE_LIBRARY_ROWS = ("phase_256x1", "copy_256x1", "copy_256x4", "copy_1024x4",
+                      "read_256x4", "write_256x4")
 
 #: kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -273,7 +282,9 @@ KERNELS = {
               "qubism_tpu/ops/kernels.py:256 (stage 1-4; stage_block_prepare :1041)"),
     "butterfly": ("qubism_torch/csrc/butterfly.cu", "qubism_tpu/ops/kernels.py:944"),
     "probe_stream": ("qubism_torch/csrc/probe.cu",
-                     "experiments/bw_probe.py:50, :81, :157, :189, :220, :573 (P1-P5, P11)"),
+                     "experiments/bw_probe.py:50, :157, :220, :573 (P1, P3, P5, P11)"),
+    "probe_copy": ("qubism_torch/csrc/probe_copy_read.cu", "experiments/bw_probe.py:81 (P2)"),
+    "probe_read": ("qubism_torch/csrc/probe_copy_read.cu", "experiments/bw_probe.py:189 (P4)"),
     "probe_pair": ("qubism_torch/csrc/probe.cu",
                    "experiments/bw_probe.py:258, :300, :351, :456 (P6-P9)"),
 }
@@ -282,7 +293,7 @@ PATH_KERNELS = {
     "file path": ("gate", "diag", "lane", "layer1q"),
     "compiled path": ("gate", "diag", "lane", "layer1q", "stage"),
     "DSL": ("gate", "diag", "lane", "stage"),
-    "bandwidth probe": ("probe_stream", "probe_pair", "lane"),
+    "bandwidth probe": ("probe_stream", "probe_copy", "probe_read", "probe_pair", "lane"),
     "mesh path": ("butterfly", "gate", "diag", "lane", "stage"),
     "observables": ("gate", "diag", "lane", "stage"),
     "density path": ("gate", "diag", "lane"),
@@ -308,7 +319,17 @@ LIBRARY = {"gate": "torch.einsum", "layer1q": "torch.einsum", "diag": "mul_ by t
 #: (the mesh path's: one card holds 30 qubits as 2 banks of 2^29)
 BFLY_SIZES, BFLY_ROW = (2, 4, 16), 2
 #: the bandwidth probe's variants whose times fill the probe kernels' rows
-PROBE_ROWS = {"probe_stream": "phase_256x4", "probe_pair": "pair_q5"}
+PROBE_ROWS = {"probe_stream": "phase_256x4", "probe_copy": "copy_256x1",
+              "probe_read": "read_256x4", "probe_pair": "pair_q5"}
+#: states smaller than a tile of the copy and read kernels (all of the pass
+#: is the predicated tail), and a tile that is not a power of two
+N_TAILS = (1, 3, 9)
+ODD_GEOMETRY = (96, 2)
+#: the read of a state whose parts all lie in [0.25, 0.75) against its
+#: float64 sum, relative: the float32 result rounds by up to 6e-8, and at
+#: n = 30 one tile of 256x4 is 1.9e-6 of the sum, so a tile dropped or read
+#: twice fails
+READ_POSITIVE_TOL = 2e-7
 
 
 class SmokeFailure(Exception):
@@ -910,13 +931,14 @@ def phase_butterfly(report):
 
 
 def probe_cases(n, rng):
-    """(kernel, label, kernel call, plain call, exact) cases of the two probe
+    """(kernel, label, kernel call, plain call, exact) cases of the probe
     kernels at n qubits; each call takes a fresh copy of the state and
     returns what it wrote (read: the sum). The first case of each label
     prefix is the one run at full width."""
     import numpy as np
     import torch
 
+    from qubism_torch.experiments.bw_probe import STREAM_KERNEL
     from qubism_torch.ops import probes as P
 
     def stream_case(mode, second, geometry):
@@ -924,8 +946,8 @@ def probe_cases(n, rng):
             return lambda x: fn(x, mode, n, torch.empty_like(x) if second else None, **kw)
 
         label = f"{mode}{' out' if second else ''} {geometry[0]}x{geometry[1]}"
-        return ("probe_stream", label, call(P.stream, geometry=geometry), call(P.stream_plain),
-                mode in ("copy", "write"))
+        return (STREAM_KERNEL[mode], label, call(P.stream, geometry=geometry),
+                call(P.stream_plain), mode in ("copy", "write"))
 
     def table(size):
         t = np.exp(1j * rng.uniform(0, 2 * math.pi, size)).astype(np.complex64)
@@ -946,29 +968,40 @@ def probe_cases(n, rng):
                 f"{geometry[0]}x{geometry[1]}"
         return ("probe_pair", label, call(P.pair, geometry=geometry), call(P.pair_plain), False)
 
+    copy_read = [stream_case(mode, mode == "copy", g) for mode in ("copy", "read")
+                 for g in ((256, 1), (256, 4), (1024, 4), ODD_GEOMETRY)]
+    if n in N_TAILS:
+        return copy_read
     h = np.array([[1, 1], [1, -1]]) / math.sqrt(2)
-    cases = [stream_case("copy", True, (256, 1)), stream_case("phase", False, (256, 4)),
-             stream_case("read", False, (1024, 4)), stream_case("write", False, (256, 4)),
+    cases = [stream_case("phase", False, (256, 4)), stream_case("write", False, (256, 4)),
              pair_case(5, unitary(1, rng), "row lane")]
     if n < N_WIDE:
         cases += [stream_case("phase", True, (1024, 4)), stream_case("write", True, (128, 2)),
-                  stream_case("copy", True, (1024, 4)), stream_case("read", False, (256, 1)),
                   pair_case(0, h, cols=64, tables="row lane", geometry=(512, 4)),
                   pair_case(n // 2, h), pair_case(n - 10, h, phase=1, geometry=(256, 1)),
                   pair_case(n - 2, unitary(1, rng), "lane", geometry=(128, 2)),
                   pair_case(n - 1, unitary(1, rng), "row", second=True)]
-    return cases
+    return copy_read + cases
 
 
 def phase_probe_kernels(report):
-    """The two probe kernels against their plain versions on the card: copy
+    """The probe kernels against their plain versions on the card: copy
     and write exactly, phase and pair to TOL in relative L2, the read sum to
-    TOL times the sum of magnitudes."""
+    TOL times the sum of magnitudes; copy and read also on states smaller
+    than a tile (N_TAILS). Three reads of one state back to back must give
+    the same sum bit for bit (the read kernel's ticket counter is reset by
+    each call, and its partials are added in a fixed order). A random
+    state's sum is near 0 against its sum of magnitudes, so the read is
+    also held to READ_POSITIVE_TOL of the float64 sum of a state whose
+    parts all lie in [0.25, 0.75), where any part left out or added twice
+    shows."""
     import numpy as np
     import torch
 
+    from qubism_torch.ops import probes as P
+
     rng = np.random.default_rng(2025)
-    for n in (N_CHECK, N_WIDE):
+    for n in N_TAILS + (N_CHECK, N_WIDE):
         for i, (name, label, kern, plain, exact) in enumerate(probe_cases(n, rng)):
             s = rand_state(n, 500 + 10 * n + i)
             got = kern(s.clone())
@@ -987,6 +1020,26 @@ def phase_probe_kernels(report):
             check(ok, f"{name} {label} disagrees with its plain version at n={n}: "
                       f"rel {err:.3e}, max abs {abs_err:.3e}" + (" (must be exact)" if exact else ""))
             del s, got, want
+    for n in (N_CHECK, N_WIDE):
+        s = rand_state(n, 900 + n)
+        sums = [P.stream(s, "read", n) for _ in range(3)]
+        sync()
+        log(f"kernel probe_read n={n} three reads back to back: "
+            f"{[float(x[0]).hex() for x in sums]}")
+        check(all(torch.equal(x, sums[0]) for x in sums),
+              f"probe_read at n={n}: three reads of one state differ: {sums}")
+        g = torch.Generator(device=DEV).manual_seed(700 + n)
+        torch.view_as_real(s).uniform_(0.25, 0.75, generator=g)
+        for geometry in ((256, 4), (1024, 4), (256, 1), ODD_GEOMETRY):
+            got = float(P.stream(s, "read", n, geometry=geometry)[0])
+            want = float(torch.view_as_real(s).sum(dtype=torch.float64))
+            err = abs(got - want) / want
+            log(f"kernel probe_read n={n} parts in [0.25, 0.75) {geometry[0]}x{geometry[1]}: "
+                f"{got!r} against the float64 sum {want!r}, rel {err:.3e}")
+            check(err <= READ_POSITIVE_TOL,
+                  f"probe_read {geometry} at n={n}: {got!r} against the float64 sum {want!r}, "
+                  f"rel {err:.3e} > {READ_POSITIVE_TOL}")
+        del s
 
 
 def run_bw_probe(report):
@@ -3229,14 +3282,15 @@ def run_protocols_path():
 
 
 def time_probes_beside_library():
-    """The stream probes whose rows read behind their library call (P1
-    ``phase_256x1`` beside ``mul_``, P2 ``copy_256x1`` beside ``copy_``, P4
-    ``read_256x4`` beside ``torch.sum``, P5 ``write_256x4`` beside
-    ``fill_``), each pair timed alternately in one window, three rounds
-    (``bw_probe.time_pass``: a warm-up, best of 3 windows of 16 calls).
-    Run after the paths' counts were read: not their work."""
-    import torch
-
+    """The stream probes beside their library call (P2's copy kernel at
+    256x1, 256x4 and 1024x4 beside ``copy_``, P4 ``read_256x4`` beside
+    ``torch.sum``; P1 ``phase_256x1`` beside ``mul_`` and P5 ``write_256x4``
+    beside ``fill_`` as the window's control), each pair timed alternately
+    in one window, three rounds (``bw_probe.time_pass``: a warm-up, best of
+    3 windows of 16 calls). The rows reuse the memory PyTorch's allocator
+    holds, as ``bw_probe`` does: nothing is freed with cudaFree between
+    them, since passes right after a large free run slower. Run
+    after the paths' counts were read: not their work."""
     from qubism_torch.experiments import bw_probe
 
     for variant in PROBE_LIBRARY_ROWS:
@@ -3252,8 +3306,6 @@ def time_probes_beside_library():
             f"library ms {[round(t, 4) for t in lib]}, best {min(kern):.4f} vs {min(lib):.4f}: "
             f"{verdict} ({spread:.4f})")
         del probe
-        if DEV == "cuda":
-            torch.cuda.empty_cache()
 
 
 TRAJ_TIMES = {}

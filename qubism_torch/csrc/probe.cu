@@ -2,16 +2,14 @@
 // 2^n amplitudes, one access pattern each, so that the engine's kernels can
 // be read against what the card sustains for that pattern.
 //
-// Replaces the 11 pallas_call sites of experiments/bw_probe.py:
+// Replaces 8 of the 11 pallas_call sites of experiments/bw_probe.py (the
+// copy and read passes, make_pallas_copy (:81) and make_pallas_read_only
+// (:189), are csrc/probe_copy_read.cu):
 //
-// * qk_probe_stream, a streaming pass in one of four modes:
-//   copy   src -> dst                     make_pallas_copy (:81)
+// * qk_probe_stream, a streaming pass in one of two modes:
 //   phase  dst = src * (c1 + i c2)        make_pallas_phase (:50),
 //          (dst == src: in place)         make_pallas_phase_noalias (:157),
 //                                         phase2d in main_canon (:573)
-//   read   sum of re + im, as per-block   make_pallas_read_only (:189)
-//          partial sums, then one block
-//          that adds them up
 //   write  re = v, im = v / 2, v = *seed  make_pallas_write_only (:220)
 // * qk_probe_pair, one qubit q at stride s = 2^(n-1-q):
 //   y0 = a x0 + b x1, y1 = (c x0 + d x1) p, with p = row[b] * lane[c] where
@@ -22,23 +20,20 @@
 //                                         make_roll_butterfly (:456).
 //   (make_lane_matmul_canonical (:506) is K3, csrc/lane.cu.)
 //
-// Bound: device memory, by construction. copy, phase and pair read and write
-// 16 B per amplitude, read reads 8 B, write writes 8 B; the pair probe's
-// tables add B + C complex values. At most ~3 flop per byte moved, far below
-// the card's balance point.
+// Bound: device memory, by construction. phase and pair read and write
+// 16 B per amplitude, write writes 8 B; the pair probe's tables add B + C
+// complex values. At most ~3 flop per byte moved, far below the card's
+// balance point.
 //
 // Design: 16-byte accesses (a float4 is two amplitudes) in a grid-stride
 // loop. A block of T threads handles T * VEC float4s per step: access j of
 // thread t is float4 base + j * T + t, so every access of a warp is one
 // contiguous 512-byte run. The launch geometry (T, VEC) is the knob the
 // TPU's (BR, C) block shapes stood for; the kernels are templated on VEC,
-// which keeps VEC independent loads in flight per thread. The TPU kernels
-// ran their grid in order on one core, so the read probe could carry its
-// sum in one VMEM tile from step to step; here blocks run in no order, so
-// each block writes a partial sum and a second launch adds the partials.
-// The write probe reads its seed from a separate one-element buffer that
-// the caller copied out of the state first: read from the state itself, the
-// result would depend on which block overwrote element 0 first.
+// which keeps VEC independent loads in flight per thread. The write probe
+// reads its seed from a separate one-element buffer that the caller copied
+// out of the state first: read from the state itself, the result would
+// depend on which block overwrote element 0 first.
 // The pair kernel takes two adjacent pairs per item (s >= 2), so its loads
 // of x0 and x1 are two 16-byte accesses; at s = 1 a pair is one float4. Its
 // 2x2 coefficients and constant phase travel in the kernel parameters (read
@@ -51,7 +46,7 @@
 
 namespace {
 
-enum Mode { kCopy = 0, kPhase = 1, kRead = 2, kWrite = 3 };
+enum Mode { kPhase = 1, kWrite = 3 };
 
 constexpr int kMaxThreads = 1024;
 constexpr int kPairMaxThreads = 512;
@@ -61,31 +56,11 @@ __device__ __forceinline__ float4 phase2(float4 x, float2 c) {
                      x.z * c.x - x.w * c.y, x.z * c.y + x.w * c.x);
 }
 
-// The sum of v over the block, valid in thread 0. Uses 32 words of shared
-// memory; blockDim.x is a multiple of 32.
-template <typename T>
-__device__ T block_sum(T v) {
-  __shared__ T warp_sums[32];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < int(blockDim.x / 32) ? warp_sums[lane] : T(0);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  }
-  return v;
-}
-
 template <int MODE, int VEC>
 __global__ void __launch_bounds__(kMaxThreads)
-stream_kernel(const float4* src, float4* dst, int64_t items, float2 c, const float* seed,
-              float* partial) {
+stream_kernel(const float4* src, float4* dst, int64_t items, float2 c, const float* seed) {
   const int64_t tile = int64_t(blockDim.x) * VEC;
   const int64_t step = tile * gridDim.x;
-  float acc = 0.f;
   float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
   if (MODE == kWrite) {
     const float v = *seed;
@@ -104,26 +79,11 @@ stream_kernel(const float4* src, float4* dst, int64_t items, float2 c, const flo
     for (int j = 0; j < VEC; ++j) {
       const int64_t i = base + int64_t(j) * blockDim.x;
       if (i < items) {
-        if (MODE == kCopy) dst[i] = x[j];
         if (MODE == kPhase) dst[i] = phase2(x[j], c);
         if (MODE == kWrite) dst[i] = w;
-        if (MODE == kRead) acc += (x[j].x + x[j].y) + (x[j].z + x[j].w);
       }
     }
   }
-  if (MODE == kRead) {
-    acc = block_sum(acc);
-    if (threadIdx.x == 0) partial[blockIdx.x] = acc;
-  }
-}
-
-// out[0] = the sum of the partials, added in double by one block.
-__global__ void __launch_bounds__(kMaxThreads)
-sum_partials_kernel(const float* partial, int64_t count, float* out) {
-  double acc = 0.0;
-  for (int64_t i = threadIdx.x; i < count; i += blockDim.x) acc += partial[i];
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) out[0] = float(acc);
 }
 
 struct PairArgs {
@@ -208,20 +168,13 @@ unsigned int blocks_for(int64_t items, int threads, int vec) {
   return qk::grid_for((items + vec - 1) / vec, threads);
 }
 
-template <int MODE, int VEC>
-void launch_stream(const float4* src, float4* dst, int64_t items, float2 c, const float* seed,
-                   float* partial, unsigned int blocks, int threads, cudaStream_t st) {
-  stream_kernel<MODE, VEC><<<blocks, threads, 0, st>>>(src, dst, items, c, seed, partial);
-}
-
 template <int MODE>
 void launch_stream_vec(int vec, const float4* src, float4* dst, int64_t items, float2 c,
-                       const float* seed, float* partial, unsigned int blocks, int threads,
-                       cudaStream_t st) {
+                       const float* seed, unsigned int blocks, int threads, cudaStream_t st) {
   switch (vec) {
-    case 1: return launch_stream<MODE, 1>(src, dst, items, c, seed, partial, blocks, threads, st);
-    case 2: return launch_stream<MODE, 2>(src, dst, items, c, seed, partial, blocks, threads, st);
-    default: return launch_stream<MODE, 4>(src, dst, items, c, seed, partial, blocks, threads, st);
+    case 1: stream_kernel<MODE, 1><<<blocks, threads, 0, st>>>(src, dst, items, c, seed); break;
+    case 2: stream_kernel<MODE, 2><<<blocks, threads, 0, st>>>(src, dst, items, c, seed); break;
+    default: stream_kernel<MODE, 4><<<blocks, threads, 0, st>>>(src, dst, items, c, seed);
   }
 }
 
@@ -238,18 +191,18 @@ void launch_pair_vec(int vec, const float4* src, float4* dst, int64_t items, con
 
 }  // namespace
 
-// mode: 0 copy, 1 phase, 2 read, 3 write. src, dst: device float2[2^n]
-// (dst may equal src for phase; unused: src for write, dst for read);
-// c: host float2, the phase (phase only); seed: device float[1] (write
-// only); partial: device float[partial_len] of scratch and out: device
-// float[1] for the sum (read only). threads: a multiple of 32 up to 1024;
-// vec: 1, 2 or 4 float4s per thread and step.
+// mode: 1 phase, 3 write (copy and read: qk_probe_copy, qk_probe_read).
+// src, dst: device float2[2^n] (dst may equal src for phase; src is unused
+// for write); c: host float2, the phase (phase only); seed: device float[1]
+// (write only). threads: a multiple of 32 up to 1024; vec: 1, 2 or 4
+// float4s per thread and step.
 extern "C" int qk_probe_stream(int mode, const void* src, void* dst, int64_t n, const void* c,
-                               const void* seed, void* partial, int64_t partial_len, void* out,
-                               int threads, int vec, int device, void* stream) {
+                               const void* seed, int threads, int vec, int device,
+                               void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (n < 1 || n > 40 || mode < kCopy || mode > kWrite || !geometry_ok(threads, vec, kMaxThreads))
+  if (n < 1 || n > 40 || (mode != kPhase && mode != kWrite) ||
+      !geometry_ok(threads, vec, kMaxThreads))
     return (int)cudaErrorInvalidValue;
   const int64_t items = (int64_t(1) << n) / 2;  // float4s
   const unsigned int blocks = blocks_for(items, threads, vec);
@@ -257,26 +210,13 @@ extern "C" int qk_probe_stream(int mode, const void* src, void* dst, int64_t n, 
   float4* d = static_cast<float4*>(dst);
   const float2 ph = c ? *static_cast<const float2*>(c) : make_float2(1.f, 0.f);
   const float* sd = static_cast<const float*>(seed);
-  float* part = static_cast<float*>(partial);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kCopy:
-      launch_stream_vec<kCopy>(vec, s, d, items, ph, sd, part, blocks, threads, st);
-      break;
-    case kPhase:
-      if (!c) return (int)cudaErrorInvalidValue;
-      launch_stream_vec<kPhase>(vec, s, d, items, ph, sd, part, blocks, threads, st);
-      break;
-    case kRead:
-      if (!part || !out || partial_len < int64_t(blocks)) return (int)cudaErrorInvalidValue;
-      launch_stream_vec<kRead>(vec, s, d, items, ph, sd, part, blocks, threads, st);
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return (int)e;
-      sum_partials_kernel<<<1, kMaxThreads, 0, st>>>(part, blocks, static_cast<float*>(out));
-      break;
-    default:
-      if (!sd) return (int)cudaErrorInvalidValue;
-      launch_stream_vec<kWrite>(vec, s, d, items, ph, sd, part, blocks, threads, st);
+  if (mode == kPhase) {
+    if (!c) return (int)cudaErrorInvalidValue;
+    launch_stream_vec<kPhase>(vec, s, d, items, ph, sd, blocks, threads, st);
+  } else {
+    if (!sd) return (int)cudaErrorInvalidValue;
+    launch_stream_vec<kWrite>(vec, s, d, items, ph, sd, blocks, threads, st);
   }
   return (int)cudaGetLastError();
 }

@@ -12,11 +12,14 @@ variant that carries its function); without names every variant runs, and
 ``canon`` runs the four of the JAX probe's ``main_canon``.
 
 Timing: one warm-up pass, then :data:`K` passes back to back between two
-CUDA events, best of :data:`REPS` windows. Each variant prints one JSON line:
-``variant``, ``n``, ``kernel`` (the port kernel it launches, or null for the
-library yardstick), ``ms_per_pass``, ``gbps`` (the bytes the pass must move
-over its time), ``bound_ms`` and ``bound_by`` (the least time of one H100
-SXM for those bytes and operations, :func:`qubism_torch.ops.probes.bound`),
+CUDA events, best of :data:`REPS` windows. The variants reuse the memory
+PyTorch's allocator holds, and none frees it (cudaFree): right after
+gigabytes are freed the card's passes run slower for some 100 ms. Each
+variant prints one JSON line: ``variant``, ``n``, ``kernel`` (the port
+kernel it launches, or null for the library yardstick), ``ms_per_pass``,
+``gbps`` (the bytes the pass must move over its time), ``bound_ms`` and
+``bound_by`` (the least time of one H100 SXM for those bytes and
+operations, :func:`qubism_torch.ops.probes.bound`),
 ``frac_peak`` (``gbps`` over 3350 GB/s), ``frac_bound``, ``plain_ms``
 (the kernel's plain version), ``library_ms`` (one PyTorch call computing the
 same function, where there is one; a pair pass without tables: one
@@ -89,6 +92,11 @@ def _state(n: int, device) -> torch.Tensor:
     return s.div_(torch.linalg.vector_norm(s))
 
 
+#: the kernel that carries each stream mode (its launch counter)
+STREAM_KERNEL = {"copy": "probe_copy", "read": "probe_read", "phase": "probe_stream",
+                 "write": "probe_stream"}
+
+
 def _stream(mode: str, geometry, second: bool = False):
     """A stream pass; ``second``: phase into a second buffer."""
 
@@ -105,7 +113,7 @@ def _stream(mode: str, geometry, second: bool = False):
             v = torch.view_as_real(s)[0, 0].clone()
             value = torch.complex(v, v * 0.5)
             library = lambda: target.fill_(value)  # noqa: E731
-        return Probe("probe_stream", s,
+        return Probe(STREAM_KERNEL[mode], s,
                      lambda: probes.stream(s, mode, n, out, geometry=geometry),
                      lambda: probes.stream_plain(s, mode, n, out),
                      library, *probes.stream_cost(mode, n))
@@ -312,9 +320,10 @@ def measure(name: str, n: int, device="cuda", card_info=(None, None)) -> dict:
                            f"version by {library_err:.3e} (relative L2)")
     bound_ms, bound_by = probes.bound(probe.nbytes, probe.flops, probe.tf32x3)
     gbps = probe.nbytes / ms / 1e6
+    # the memory stays with PyTorch's allocator for the next variant: freed
+    # with cudaFree (empty_cache), gigabytes slow the card's passes for a
+    # while after, and the next variant would be timed in it
     del probe
-    if device != "cpu":
-        torch.cuda.empty_cache()
     return {"variant": name, "n": n, "kernel": kernel, "ms_per_pass": ms,
             "gbps": gbps, "bound_ms": bound_ms, "bound_by": bound_by,
             "frac_peak": gbps / PEAK_GBPS, "frac_bound": bound_ms / ms, "plain_ms": plain_ms,

@@ -1,4 +1,5 @@
-"""The two kernels of the HBM bandwidth probe (``csrc/probe.cu``).
+"""The kernels of the HBM bandwidth probe (``csrc/probe.cu``,
+``csrc/probe_copy_read.cu``).
 
 They are the simplest passes over a state with one access pattern each;
 their rates are the ceilings that the engine's kernels are read against
@@ -8,6 +9,10 @@ their rates are the ceilings that the engine's kernels are read against
   into a second buffer, ``phase`` (times :data:`PHASE`, in place or into a
   second buffer), ``read`` (the sum of every real and imaginary part) and
   ``write`` (re = v, im = v / 2, with v = the real part of amplitude 0).
+  Copy and read go to their own kernels (:func:`copy`, :func:`read`; the
+  tiles each block takes are computed here, :func:`partition`); the read
+  runs in one launch, and its sum is the same bit for bit from call to
+  call. Phase and write go to ``qk_probe_stream``.
 * :func:`pair` -- one qubit q: y0 = a x0 + b x1, y1 = (c x0 + d x1) p for
   each pair (x0, x1) at stride 2^(n-1-q), where p = ``row[b] * lane[c]``
   with ``b, c = divmod(offset in the tail, C)``, C = min(cols, tail); a
@@ -36,18 +41,21 @@ from . import kernels
 from .kernels import _check_state, _host, _ptr
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-launches = {"probe_stream": 0, "probe_pair": 0}
+launches = {"probe_stream": 0, "probe_copy": 0, "probe_read": 0, "probe_pair": 0}
 
 MODES = ("copy", "phase", "read", "write")
 #: the probes' unit phase, C1 + i C2 (experiments/bw_probe.py:42)
 PHASE = complex(np.float32(0.9238795), np.float32(0.3826834))
 #: (threads per block, 16-byte vectors per thread and step)
 DEFAULT_GEOMETRY = (256, 4)
-#: the most blocks a pass launches (csrc/common.cuh: grid_for), and so the
-#: read probe's partial sums
-_MAX_BLOCKS = 1 << 16
 _PAIR_MAX_THREADS = 512
 _STREAM_MAX_THREADS = 1024
+#: the copy's grid is one block per tile up to this many blocks
+COPY_MAX_BLOCKS = 1 << 30
+#: the most KiB of tiles the copy keeps resident on an SM (fewer blocks an
+#: SM where its own limits would allow more; 0: no cap). On an H100 the copy
+#: reads fastest with 32-64 KiB in flight an SM (PERF.md, Findings)
+COPY_INFLIGHT_KIB = 48
 
 #: published peaks of one NVIDIA H100 SXM (data sheet, 700 W): HBM3 bytes/s,
 #: float32 operations/s outside the tensor cores, and dense TF32
@@ -104,7 +112,7 @@ def _check_out(out, state, mode=None):
             or out.device != state.device:
         raise ValueError(f"out must match the state: {state.dtype} {tuple(state.shape)} "
                          f"on {state.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
-    if mode == "copy" and out.data_ptr() == state.data_ptr():
+    if mode == "copy" and (out is state or out.data_ptr() == state.data_ptr()):
         raise ValueError("copy: out must be a second buffer (a copy in place moves nothing)")
 
 
@@ -141,37 +149,116 @@ def stream(state: torch.Tensor, mode: str, n: int, out=None, *,
     float32 tensor."""
     if mode not in MODES:
         raise ValueError(f"stream mode {mode!r}: one of {MODES}")
-    if mode == "copy" and out is None:
-        raise ValueError("copy: give out, a second buffer")
-    if n < 1:
-        raise ValueError("stream: n >= 1")
-    _check_state(state, n)
-    _check_out(out, state, mode)
-    _check_geometry(geometry, _STREAM_MAX_THREADS)
+    if mode == "copy":
+        return copy(state, n, out, geometry=geometry)
+    _check_stream(state, n, out, geometry, mode)
+    if mode == "read":
+        return read(state, n, geometry=geometry)
     if state.device.type == "cpu":
         return stream_plain(state, mode, n, out)
     threads, vec = geometry
     dst = state if out is None else out
     null = ctypes.c_void_p(None)
-    if mode == "read":
-        partial = torch.empty(_MAX_BLOCKS, dtype=torch.float32, device=state.device)
-        total = torch.empty(1, dtype=torch.float32, device=state.device)
-        kernels._launch(state, "probe_stream", lambda lib, d, s: lib.qk_probe_stream(
-            2, _ptr(state), null, n, null, null, _ptr(partial), partial.numel(), _ptr(total),
-            threads, vec, d, s), counts=launches)
-        return total
     if mode == "write":
         # the seed leaves the state before any block overwrites amplitude 0
         seed = torch.view_as_real(state)[0, 0:1].clone()
         kernels._launch(state, "probe_stream", lambda lib, d, s: lib.qk_probe_stream(
-            3, null, _ptr(dst), n, null, _ptr(seed), null, 0, null, threads, vec, d, s),
-            counts=launches)
+            3, null, _ptr(dst), n, null, _ptr(seed), threads, vec, d, s), counts=launches)
         return dst
     ph = np.array([PHASE], dtype=np.complex64)
     kernels._launch(state, "probe_stream", lambda lib, d, s: lib.qk_probe_stream(
-        MODES.index(mode), _ptr(state), _ptr(dst), n, _host(ph), null, null, 0, null,
-        threads, vec, d, s), counts=launches)
+        1, _ptr(state), _ptr(dst), n, _host(ph), null, threads, vec, d, s), counts=launches)
     return dst
+
+
+def partition(n: int, threads: int, vec: int, max_blocks: int) -> tuple[int, int, int]:
+    """(blocks, per, extra): how the copy and read kernels share a state of
+    2^n amplitudes. Its 2^n / 2 float4s are cut into tiles of ``threads *
+    vec``; there are min(tiles, ``max_blocks``) blocks (at least 1), and
+    block b takes ``per + (b < extra)`` tiles. The copy walks its tiles b,
+    b + blocks, b + 2 blocks, ... (``max_blocks`` = ``COPY_MAX_BLOCKS``: one
+    tile each below 2^30 tiles), the read the contiguous run from ``b * per
+    + min(b, extra)`` (``max_blocks`` = :func:`read_slots`). The float4s
+    past the last full tile are the last block's."""
+    tiles = (1 << n) // 2 // (threads * vec)
+    blocks = max(1, min(max_blocks, tiles))
+    per, extra = divmod(tiles, blocks)
+    return blocks, per, extra
+
+
+#: (device, threads, vec) -> the read kernel's blocks resident on the card
+_read_slots = {}
+#: device -> (float32 partials, uint32 ticket counter): the read kernel's
+#: scratch, kept between calls (the kernel leaves the counter at 0)
+_read_scratch = {}
+
+
+def read_slots(geometry, device: int) -> int:
+    """How many blocks of the read kernel at ``geometry`` the card holds at
+    once (qk_probe_read_occupancy: SMs x blocks resident per SM); the read's
+    grid."""
+    key = (device, *geometry)
+    if key not in _read_slots:
+        from . import build
+
+        lib = build.library()
+        out = (ctypes.c_int * 2)()
+        rc = lib.qk_probe_read_occupancy(*geometry, device, out)
+        if rc != 0:
+            raise RuntimeError(f"probe read: occupancy query failed: "
+                               f"{lib.qk_error_string(rc).decode()} ({rc})")
+        if out[1] < 1:
+            raise RuntimeError(f"probe read: no block of {geometry} fits on an SM")
+        _read_slots[key] = out[0] * out[1]
+    return _read_slots[key]
+
+
+def _check_stream(state, n, out, geometry, mode):
+    if n < 1:
+        raise ValueError("stream: n >= 1")
+    _check_state(state, n)
+    _check_out(out, state, mode)
+    _check_geometry(geometry, _STREAM_MAX_THREADS)
+
+
+def copy(state: torch.Tensor, n: int, out: torch.Tensor, *,
+         geometry=DEFAULT_GEOMETRY) -> torch.Tensor:
+    """``out`` = the state, by the copy kernel (one block a tile, at most
+    ``COPY_INFLIGHT_KIB`` of tiles resident on an SM); what
+    ``stream(state, "copy", n, out)`` runs."""
+    if out is None:
+        raise ValueError("copy: give out, a second buffer")
+    _check_stream(state, n, out, geometry, "copy")
+    if state.device.type == "cpu":
+        return stream_plain(state, "copy", n, out)
+    blocks, per, extra = partition(n, *geometry, COPY_MAX_BLOCKS)
+    kernels._launch(state, "probe_copy", lambda lib, d, s: lib.qk_probe_copy(
+        _ptr(state), _ptr(out), n, *geometry, blocks, per, extra, COPY_INFLIGHT_KIB, d, s),
+        counts=launches)
+    return out
+
+
+def read(state: torch.Tensor, n: int, *, geometry=DEFAULT_GEOMETRY) -> torch.Tensor:
+    """The sum of every real and imaginary part, a one-element float32
+    tensor, by the read kernel on a grid of :func:`read_slots` blocks; what
+    ``stream(state, "read", n)`` runs."""
+    _check_stream(state, n, None, geometry, "read")
+    if state.device.type == "cpu":
+        return stream_plain(state, "read", n)
+    total = torch.empty(1, dtype=torch.float32, device=state.device)
+
+    def call(lib, d, s):
+        blocks, per, extra = partition(n, *geometry, read_slots(geometry, d))
+        partial, counter = _read_scratch.get(d, (None, None))
+        if partial is None or partial.numel() < blocks:
+            partial = torch.empty(blocks, dtype=torch.float32, device=state.device)
+            counter = torch.zeros(1, dtype=torch.int32, device=state.device)
+            _read_scratch[d] = (partial, counter)
+        return lib.qk_probe_read(_ptr(state), n, *geometry, blocks, per, extra, _ptr(partial),
+                                 partial.numel(), _ptr(counter), _ptr(total), d, s)
+
+    kernels._launch(state, "probe_read", call, counts=launches)
+    return total
 
 
 # ---------------------------------------------------------------------------

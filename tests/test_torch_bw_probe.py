@@ -279,7 +279,8 @@ def test_wrappers_launch_or_raise_off_the_cpu():
                  lambda: TP.pair(s, 3, H, 8, phase=TP.PHASE)):
         with pytest.raises(ValueError, match="no kernel"):
             call()
-    assert TP.launches == {"probe_stream": 0, "probe_pair": 0}
+    assert TP.launches == {"probe_stream": 0, "probe_copy": 0, "probe_read": 0,
+                           "probe_pair": 0}
 
 
 @pytest.mark.parametrize("case", ["copy_no_out", "copy_in_place", "bad_mode", "geometry",
