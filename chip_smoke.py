@@ -145,17 +145,18 @@ at n = 28 (``time n=28 gate dev`` etc.). The paths:
 After the paths, the stream probes are timed beside their library call,
 alternately in one window, three rounds (``probe beside library`` lines):
 the copy kernel at 256x1, 256x4 and 1024x4 beside ``copy_``,
-``read_256x4`` beside ``torch.sum``, and ``phase_256x1`` and
-``write_256x4``, still on the older stream kernel, beside ``mul_`` and
-``fill_``.
+``read_256x4`` beside ``torch.sum``, the phase in place at 256x1, 256x4
+and 1024x4 beside ``mul_``, ``phase_out_256x4`` beside ``torch.mul(...,
+out=)`` and ``write_256x4`` beside ``fill_``.
 
 The butterfly kernel (K6) is held against its plain version at 2^20 and
 2^30 amplitudes in 2, 4 and 16 banks and timed at 2^28 beside one
 ``torch.matmul``. The probe kernels are held against their plain
 versions like the others (copy and write exactly; the read probe's sum
-within 1e-5 of the sum of magnitudes; copy and read also on states of 2,
-8 and 512 amplitudes, smaller than a tile, and with a tile of 96 x 2
-float4s; three reads of one state bit for bit equal; the read of a state
+within 1e-5 of the sum of magnitudes; copy, read, the phase in place and
+into a second buffer, and write also on states of 2, 8 and 512
+amplitudes, smaller than a tile, and with a tile of 96 x 2 float4s; three
+reads of one state bit for bit equal; the read of a state
 whose parts all lie in [0.25, 0.75) within 2e-7 of its float64 sum). The
 counters show which kernels each path went through. The 30- and 28-qubit
 programs are then run again with every fused pass also applied by the
@@ -265,11 +266,10 @@ N_LIND_MESH, LIND_RATE, LIND_T, LIND_STEPS = 14, 0.8, 0.5, 8
 #: circuits, simultaneous RB's width, ZNE's width
 XEB_SHOTS, EST_SHOTS = 8192, 4096
 N_SHADOW, SHADOW_T, N_MLAE, QV_M, QV_CIRCUITS, N_SRB, N_ZNE = 20, 2048, 16, 6, 5, 100, 12
-#: the stream probes timed beside their library call in one window: the
-#: copy kernel in every geometry, the read kernel, and phase and write (P1,
-#: P5) as the window's control
-PROBE_LIBRARY_ROWS = ("phase_256x1", "copy_256x1", "copy_256x4", "copy_1024x4",
-                      "read_256x4", "write_256x4")
+#: the stream probes timed beside their library call in one window: every
+#: variant of the stream kernels (P1-P5, P11)
+PROBE_LIBRARY_ROWS = ("phase_256x1", "phase_256x4", "phase_1024x4", "phase_out_256x4",
+                      "copy_256x1", "copy_256x4", "copy_1024x4", "read_256x4", "write_256x4")
 
 #: kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -281,10 +281,10 @@ KERNELS = {
     "stage": ("qubism_torch/csrc/stage.cu",
               "qubism_tpu/ops/kernels.py:256 (stage 1-4; stage_block_prepare :1041)"),
     "butterfly": ("qubism_torch/csrc/butterfly.cu", "qubism_tpu/ops/kernels.py:944"),
-    "probe_stream": ("qubism_torch/csrc/probe.cu",
+    "probe_stream": ("qubism_torch/csrc/probe_stream.cu",
                      "experiments/bw_probe.py:50, :157, :220, :573 (P1, P3, P5, P11)"),
-    "probe_copy": ("qubism_torch/csrc/probe_copy_read.cu", "experiments/bw_probe.py:81 (P2)"),
-    "probe_read": ("qubism_torch/csrc/probe_copy_read.cu", "experiments/bw_probe.py:189 (P4)"),
+    "probe_copy": ("qubism_torch/csrc/probe_stream.cu", "experiments/bw_probe.py:81 (P2)"),
+    "probe_read": ("qubism_torch/csrc/probe_stream.cu", "experiments/bw_probe.py:189 (P4)"),
     "probe_pair": ("qubism_torch/csrc/probe.cu",
                    "experiments/bw_probe.py:258, :300, :351, :456 (P6-P9)"),
 }
@@ -321,8 +321,8 @@ BFLY_SIZES, BFLY_ROW = (2, 4, 16), 2
 #: the bandwidth probe's variants whose times fill the probe kernels' rows
 PROBE_ROWS = {"probe_stream": "phase_256x4", "probe_copy": "copy_256x1",
               "probe_read": "read_256x4", "probe_pair": "pair_q5"}
-#: states smaller than a tile of the copy and read kernels (all of the pass
-#: is the predicated tail), and a tile that is not a power of two
+#: states smaller than a tile of the stream kernels (all of the pass is the
+#: predicated tail), and a tile that is not a power of two
 N_TAILS = (1, 3, 9)
 ODD_GEOMETRY = (96, 2)
 #: the read of a state whose parts all lie in [0.25, 0.75) against its
@@ -933,8 +933,9 @@ def phase_butterfly(report):
 def probe_cases(n, rng):
     """(kernel, label, kernel call, plain call, exact) cases of the probe
     kernels at n qubits; each call takes a fresh copy of the state and
-    returns what it wrote (read: the sum). The first case of each label
-    prefix is the one run at full width."""
+    returns what it wrote (read: the sum). Every stream mode (the phase in
+    place and into a second buffer) in four tiles at every n; the pair
+    probe from N_CHECK on, in full below N_WIDE."""
     import numpy as np
     import torch
 
@@ -968,29 +969,30 @@ def probe_cases(n, rng):
                 f"{geometry[0]}x{geometry[1]}"
         return ("probe_pair", label, call(P.pair, geometry=geometry), call(P.pair_plain), False)
 
-    copy_read = [stream_case(mode, mode == "copy", g) for mode in ("copy", "read")
-                 for g in ((256, 1), (256, 4), (1024, 4), ODD_GEOMETRY)]
+    tiled = [stream_case(mode, second, g)
+             for mode, second in (("copy", True), ("read", False), ("phase", False),
+                                  ("phase", True), ("write", False))
+             for g in ((256, 1), (256, 4), (1024, 4), ODD_GEOMETRY)]
     if n in N_TAILS:
-        return copy_read
+        return tiled
     h = np.array([[1, 1], [1, -1]]) / math.sqrt(2)
-    cases = [stream_case("phase", False, (256, 4)), stream_case("write", False, (256, 4)),
-             pair_case(5, unitary(1, rng), "row lane")]
+    cases = [pair_case(5, unitary(1, rng), "row lane")]
     if n < N_WIDE:
-        cases += [stream_case("phase", True, (1024, 4)), stream_case("write", True, (128, 2)),
+        cases += [stream_case("write", True, (128, 2)),
                   pair_case(0, h, cols=64, tables="row lane", geometry=(512, 4)),
                   pair_case(n // 2, h), pair_case(n - 10, h, phase=1, geometry=(256, 1)),
                   pair_case(n - 2, unitary(1, rng), "lane", geometry=(128, 2)),
                   pair_case(n - 1, unitary(1, rng), "row", second=True)]
-    return copy_read + cases
+    return tiled + cases
 
 
 def phase_probe_kernels(report):
     """The probe kernels against their plain versions on the card: copy
     and write exactly, phase and pair to TOL in relative L2, the read sum to
-    TOL times the sum of magnitudes; copy and read also on states smaller
-    than a tile (N_TAILS). Three reads of one state back to back must give
-    the same sum bit for bit (the read kernel's ticket counter is reset by
-    each call, and its partials are added in a fixed order). A random
+    TOL times the sum of magnitudes; the stream kernels also on states
+    smaller than a tile (N_TAILS). Three reads of one state back to back
+    must give the same sum bit for bit (the read kernel's ticket counter is
+    reset by each call, and its partials are added in a fixed order). A random
     state's sum is near 0 against its sum of magnitudes, so the read is
     also held to READ_POSITIVE_TOL of the float64 sum of a state whose
     parts all lie in [0.25, 0.75), where any part left out or added twice
@@ -3282,15 +3284,16 @@ def run_protocols_path():
 
 
 def time_probes_beside_library():
-    """The stream probes beside their library call (P2's copy kernel at
-    256x1, 256x4 and 1024x4 beside ``copy_``, P4 ``read_256x4`` beside
-    ``torch.sum``; P1 ``phase_256x1`` beside ``mul_`` and P5 ``write_256x4``
-    beside ``fill_`` as the window's control), each pair timed alternately
-    in one window, three rounds (``bw_probe.time_pass``: a warm-up, best of
-    3 windows of 16 calls). The rows reuse the memory PyTorch's allocator
-    holds, as ``bw_probe`` does: nothing is freed with cudaFree between
-    them, since passes right after a large free run slower. Run
-    after the paths' counts were read: not their work."""
+    """The stream probes beside their library call (P1 and P11, the phase
+    in place at 256x1, 256x4 and 1024x4, beside ``mul_``; P3
+    ``phase_out_256x4`` beside ``torch.mul(..., out=)``; P2's copy at 256x1,
+    256x4 and 1024x4 beside ``copy_``; P4 ``read_256x4`` beside
+    ``torch.sum``; P5 ``write_256x4`` beside ``fill_``), each pair timed
+    alternately in one window, three rounds (``bw_probe.time_pass``: a
+    warm-up, best of 3 windows of 16 calls). The rows reuse the memory
+    PyTorch's allocator holds, as ``bw_probe`` does: nothing is freed with
+    cudaFree between them, since passes right after a large free run
+    slower. Run after the paths' counts were read: not their work."""
     from qubism_torch.experiments import bw_probe
 
     for variant in PROBE_LIBRARY_ROWS:

@@ -1,5 +1,5 @@
-"""The kernels of the HBM bandwidth probe (``csrc/probe.cu``,
-``csrc/probe_copy_read.cu``).
+"""The kernels of the HBM bandwidth probe (``csrc/probe_stream.cu``,
+``csrc/probe.cu``).
 
 They are the simplest passes over a state with one access pattern each;
 their rates are the ceilings that the engine's kernels are read against
@@ -9,10 +9,12 @@ their rates are the ceilings that the engine's kernels are read against
   into a second buffer, ``phase`` (times :data:`PHASE`, in place or into a
   second buffer), ``read`` (the sum of every real and imaginary part) and
   ``write`` (re = v, im = v / 2, with v = the real part of amplitude 0).
-  Copy and read go to their own kernels (:func:`copy`, :func:`read`; the
-  tiles each block takes are computed here, :func:`partition`); the read
-  runs in one launch, and its sum is the same bit for bit from call to
-  call. Phase and write go to ``qk_probe_stream``.
+  Each mode has its own entry (``qk_probe_copy``, ``qk_probe_phase``,
+  ``qk_probe_read``, ``qk_probe_write``; the tiles each block takes are
+  computed here, :func:`partition`). Copy, phase and write run on one
+  block a tile with at most :data:`COPY_INFLIGHT_KIB` of tiles resident an
+  SM; the read runs in one launch on persistent blocks, and its sum is the
+  same bit for bit from call to call.
 * :func:`pair` -- one qubit q: y0 = a x0 + b x1, y1 = (c x0 + d x1) p for
   each pair (x0, x1) at stride 2^(n-1-q), where p = ``row[b] * lane[c]``
   with ``b, c = divmod(offset in the tail, C)``, C = min(cols, tail); a
@@ -50,11 +52,13 @@ PHASE = complex(np.float32(0.9238795), np.float32(0.3826834))
 DEFAULT_GEOMETRY = (256, 4)
 _PAIR_MAX_THREADS = 512
 _STREAM_MAX_THREADS = 1024
-#: the copy's grid is one block per tile up to this many blocks
+#: the grid of copy, phase and write is one block per tile up to this many
+#: blocks
 COPY_MAX_BLOCKS = 1 << 30
-#: the most KiB of tiles the copy keeps resident on an SM (fewer blocks an
-#: SM where its own limits would allow more; 0: no cap). On an H100 the copy
-#: reads fastest with 32-64 KiB in flight an SM (PERF.md, Findings)
+#: the most KiB of tiles copy, phase and write keep resident on an SM (fewer
+#: blocks an SM where their own limits would allow more; 0: no cap). On an
+#: H100 the copy reads fastest with 32-64 KiB in flight an SM (PERF.md,
+#: Findings)
 COPY_INFLIGHT_KIB = 48
 
 #: published peaks of one NVIDIA H100 SXM (data sheet, 700 W): HBM3 bytes/s,
@@ -144,9 +148,9 @@ def stream(state: torch.Tensor, mode: str, n: int, out=None, *,
     """One streaming pass over the 2^n-amplitude ``state``.
 
     ``copy`` writes ``out`` (required, a second buffer); ``phase`` and
-    ``write`` write ``out`` or, without it, the state in place; ``read``
-    returns the sum of every real and imaginary part as a one-element
-    float32 tensor."""
+    ``write`` write ``out`` or, without it (or with ``out`` the state
+    itself), the state in place; ``read`` returns the sum of every real and
+    imaginary part as a one-element float32 tensor."""
     if mode not in MODES:
         raise ValueError(f"stream mode {mode!r}: one of {MODES}")
     if mode == "copy":
@@ -156,30 +160,32 @@ def stream(state: torch.Tensor, mode: str, n: int, out=None, *,
         return read(state, n, geometry=geometry)
     if state.device.type == "cpu":
         return stream_plain(state, mode, n, out)
-    threads, vec = geometry
     dst = state if out is None else out
-    null = ctypes.c_void_p(None)
+    grid = (*geometry, *partition(n, *geometry, COPY_MAX_BLOCKS), COPY_INFLIGHT_KIB)
     if mode == "write":
         # the seed leaves the state before any block overwrites amplitude 0
         seed = torch.view_as_real(state)[0, 0:1].clone()
-        kernels._launch(state, "probe_stream", lambda lib, d, s: lib.qk_probe_stream(
-            3, null, _ptr(dst), n, null, _ptr(seed), threads, vec, d, s), counts=launches)
+        kernels._launch(state, "probe_stream", lambda lib, d, s: lib.qk_probe_write(
+            _ptr(dst), n, _ptr(seed), *grid, d, s), counts=launches)
         return dst
     ph = np.array([PHASE], dtype=np.complex64)
-    kernels._launch(state, "probe_stream", lambda lib, d, s: lib.qk_probe_stream(
-        1, _ptr(state), _ptr(dst), n, _host(ph), null, threads, vec, d, s), counts=launches)
+    # null: in place (the kernel refuses a second buffer that is the state)
+    second = ctypes.c_void_p(None) if out is None or out is state else _ptr(out)
+    kernels._launch(state, "probe_stream", lambda lib, d, s: lib.qk_probe_phase(
+        _ptr(state), second, n, _host(ph), *grid, d, s), counts=launches)
     return dst
 
 
 def partition(n: int, threads: int, vec: int, max_blocks: int) -> tuple[int, int, int]:
-    """(blocks, per, extra): how the copy and read kernels share a state of
-    2^n amplitudes. Its 2^n / 2 float4s are cut into tiles of ``threads *
+    """(blocks, per, extra): how the stream kernels share a state of 2^n
+    amplitudes. Its 2^n / 2 float4s are cut into tiles of ``threads *
     vec``; there are min(tiles, ``max_blocks``) blocks (at least 1), and
-    block b takes ``per + (b < extra)`` tiles. The copy walks its tiles b,
-    b + blocks, b + 2 blocks, ... (``max_blocks`` = ``COPY_MAX_BLOCKS``: one
-    tile each below 2^30 tiles), the read the contiguous run from ``b * per
-    + min(b, extra)`` (``max_blocks`` = :func:`read_slots`). The float4s
-    past the last full tile are the last block's."""
+    block b takes ``per + (b < extra)`` tiles. Copy, phase and write walk
+    their tiles b, b + blocks, b + 2 blocks, ... (``max_blocks`` =
+    ``COPY_MAX_BLOCKS``: one tile each below 2^30 tiles), the read the
+    contiguous run from ``b * per + min(b, extra)`` (``max_blocks`` =
+    :func:`read_slots`). The float4s past the last full tile are the last
+    block's."""
     tiles = (1 << n) // 2 // (threads * vec)
     blocks = max(1, min(max_blocks, tiles))
     per, extra = divmod(tiles, blocks)

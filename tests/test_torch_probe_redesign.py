@@ -1,5 +1,5 @@
-"""The host side of the bandwidth probe's copy and read kernels
-(csrc/probe_copy_read.cu), on the CPU.
+"""The host side of the bandwidth probe's stream kernels (copy, phase,
+read and write, csrc/probe_stream.cu), on the CPU.
 
 * A numpy walker replays the partition that ``probes.partition`` hands the
   kernels, index for index as the kernels compute it: the copy's blocks
@@ -20,8 +20,9 @@
   for bit.
 * Through a stand-in for the kernel library (a meta tensor takes the
   kernel path), the wrappers hand the kernels that partition, keep the
-  read's scratch between calls and never call the older stream entry for
-  copy or read.
+  read's scratch between calls, give the phase in place one buffer and the
+  write a seed copied out of the state; the stand-in has no entry that the
+  library no longer has, so a call to one fails.
 * On CPU tensors, ``copy``, ``read`` and ``stream`` equal the
   JAX ``make_pallas_copy`` / ``make_pallas_read_only`` in interpret mode
   (copy exactly, the sum to 1e-5 relative, as tests/test_torch_bw_probe.py).
@@ -249,8 +250,7 @@ def test_read_replay_matches_plain(n, geometry, sms, resident):
 
 
 class FakeLib:
-    """Records the copy and read entries' arguments; the stream entry must
-    not be reached from copy or read."""
+    """Records the stream entries' arguments."""
 
     def __init__(self, sms=132, resident=8):
         self.calls = []
@@ -271,8 +271,14 @@ class FakeLib:
                            counter.value))
         return 0
 
-    def qk_probe_stream(self, *args):
-        raise AssertionError("copy or read went to the older stream kernel")
+    def qk_probe_phase(self, src, dst, n, c, threads, vec, blocks, per, extra, kib, dev, st):
+        phase = complex(*ctypes.cast(c, ctypes.POINTER(ctypes.c_float))[0:2])
+        self.calls.append(("phase", src, dst, n, phase, threads, vec, blocks, per, extra, kib))
+        return 0
+
+    def qk_probe_write(self, dst, n, seed, threads, vec, blocks, per, extra, kib, dev, st):
+        self.calls.append(("write", dst, n, seed, threads, vec, blocks, per, extra, kib))
+        return 0
 
 
 @pytest.fixture
@@ -329,6 +335,64 @@ def test_read_hands_the_kernel_its_partition_and_keeps_its_scratch(fake, geometr
     partial, counter = TP._read_scratch[0]
     assert counter.dtype == torch.int32 and counter.shape == (1,)
     assert TP.launches["probe_read"] == 2 and TP.launches["probe_stream"] == 0
+
+
+PHASE_GEOMETRIES = _geometries("phase")
+
+
+def test_phase_geometries_cover_the_probe():
+    assert {(256, 1), (256, 4), (1024, 4)} <= set(PHASE_GEOMETRIES)
+    assert set(_geometries("write")) == {(256, 4), ODD}
+
+
+@pytest.fixture
+def tensors(fake, monkeypatch):
+    """The stand-in library sees the tensors themselves in place of their
+    addresses (meta tensors have none)."""
+    monkeypatch.setattr(TP, "_ptr", lambda t: t)
+    return fake
+
+
+@pytest.mark.parametrize("into", ["none", "state", "second"])
+@pytest.mark.parametrize("geometry", PHASE_GEOMETRIES)
+def test_phase_hands_the_kernel_its_partition(tensors, geometry, into):
+    """In place (no ``out``, or the state as ``out``) the phase passes one
+    buffer (the second is null), into a second buffer two; either way the
+    copy's grid and cap, and the phase in float32."""
+    n = 20
+    s = torch.empty(1 << n, dtype=torch.complex64, device="meta")
+    out = {"none": None, "state": s, "second": torch.empty_like(s)}[into]
+    second = into == "second"
+    assert TP.stream(s, "phase", n, out, geometry=geometry) is (out if second else s)
+    ((name, src, dst, *rest),) = tensors.calls
+    assert name == "phase" and src is s
+    if second:
+        assert dst is out
+    else:
+        assert isinstance(dst, ctypes.c_void_p) and dst.value is None
+    phase = complex(np.complex64(TP.PHASE))
+    assert rest == [n, phase, *geometry, *TP.partition(n, *geometry, TP.COPY_MAX_BLOCKS),
+                    TP.COPY_INFLIGHT_KIB]
+    assert TP.launches == {"probe_stream": 1, "probe_copy": 0, "probe_read": 0,
+                           "probe_pair": 0}
+
+
+@pytest.mark.parametrize("second", [False, True])
+@pytest.mark.parametrize("geometry", _geometries("write") + [(1024, 4), (256, 1)])
+def test_write_hands_the_kernel_its_partition_and_a_seed(tensors, geometry, second):
+    """The write passes the buffer it writes and a one-element float32 seed
+    that is a copy of the state's first real part, made before the launch
+    (not a view of the state, which the kernel overwrites)."""
+    n = 21
+    s = torch.empty(1 << n, dtype=torch.complex64, device="meta")
+    out = torch.empty_like(s) if second else None
+    assert TP.stream(s, "write", n, out, geometry=geometry) is (out if second else s)
+    ((name, dst, n_, seed, *rest),) = tensors.calls
+    assert name == "write" and dst is (out if second else s) and n_ == n
+    assert seed.dtype == torch.float32 and seed.shape == (1,) and seed._base is None
+    assert rest == [*geometry, *TP.partition(n, *geometry, TP.COPY_MAX_BLOCKS),
+                    TP.COPY_INFLIGHT_KIB]
+    assert TP.launches["probe_stream"] == 1 and TP.launches["probe_copy"] == 0
 
 
 def test_read_scratch_grows_with_the_grid(fake):
