@@ -27,10 +27,15 @@ formed on the card bit for bit against the host one, and both modes timed
 at n = 28 (``time n=28 gate dev`` etc.). The paths:
 
 * the OpenQASM file path through ``qubism_torch.cli.eval_file``: the example
-  goldens, GHZ-30 and brickwork-30 with 8192 shots, QFT-28 and a 28-qubit
-  adder, each checked (``main path <program>`` gives the seconds of that
-  first run; after the five paths the four wide programs run three times
-  more, ``file path warm <program>``);
+  goldens, GHZ-30 and brickwork-30 with 8192 shots, brickwork-30 at depth
+  40 (75,776 characters, past the lexer's 2^15: the native C++ lexer of
+  ``qubism_torch/native``, built with g++ before the paths, must take it)
+  with 8192 shots, QFT-28 and a 28-qubit adder, each checked (``main path
+  <program>`` gives the seconds of that first run; after the paths the
+  four wide programs run three times more, ``file path warm <program>``,
+  and a ``parse brickwork30 depth ..`` line gives, at depths 40 and 100,
+  the native and the Python lexer's host ms, their token lists equal, and
+  ``parse_openqasm``'s);
 * the compiled engine: ``CompiledCircuit`` on QFT-30 (uniform magnitudes,
   warm wall seconds and device ms), QFT-28 at stage groups 2 and 4,
   GHZ-30 and brickwork-30 with 8192 shots, and
@@ -197,6 +202,9 @@ N_CHECK, N_WIDE, N_TIME, N_BIG, N_QFT, ADDER_WIDTH, N_DSL = 20, 30, 28, 30, 28, 
 #: than a tile of the lane kernel
 N_SMALL, N_PART = 5, 10
 SHOTS = 8192
+#: brickwork-30 depths whose text is past the lexer's native threshold (2^15
+#: characters): the file path runs the first; the parse line times both
+BW_DEEP, BW_DEEPER = 40, 100
 #: the density engine's widths (one buffer; 4 shards; the entry-by-entry
 #: check), the REPL's saved register, and the noise of the density programs
 N_DENS, N_DENS_MESH, N_DENS_SMALL, N_REPL = 14, 15, 12, 26
@@ -1074,8 +1082,9 @@ def _counts(text):
 
 def run_main_path():
     """The file path through cli.eval_file, each program checked."""
-    from qubism_torch import cli
+    from qubism_torch import cli, native
     from qubism_torch.models.circuits import adder_qasm, brickwork_qasm, ghz_qasm, qft_qasm
+    from qubism_torch.qasm import lexer
 
     on_cuda = []
 
@@ -1116,6 +1125,19 @@ def run_main_path():
     ps, text = run("brickwork30", source=brickwork_qasm(N_BIG, 4, seed=7, measure=False),
                    seed=12, shots=SHOTS)
     check_top4_chi2("brickwork30", ps.stvecs["q"].state, N_BIG, _counts(text))
+    del ps
+
+    label = f"brickwork30_d{BW_DEEP}"
+    src = brickwork_qasm(N_BIG, BW_DEEP, seed=7, measure=False)
+    before = dict(lexer.routes)
+    ps, text = run(label, source=src, seed=13, shots=SHOTS)
+    routes = {k: v - before[k] for k, v in lexer.routes.items()}
+    log(f"{label}: {len(src)} characters, lexer routes {routes}, "
+        f"native build_error {native.build_error}")
+    check(native.build_error is None, f"{label}: the native lexer did not build: "
+          f"{native.build_error}")
+    check(routes["native"] >= 1, f"{label}: the lexer never took its native route ({routes})")
+    check_top4_chi2(label, ps.stvecs["q"].state, N_BIG, _counts(text))
 
     ps, _ = run("qft28", source=qft_qasm(N_QFT, measure=False), seed=0)
     check_uniform("qft28", ps.stvecs["q"].state, N_QFT)
@@ -1137,6 +1159,40 @@ def time_file_path_warm():
         check(line["rc"] == 0, f"{line['program']} (warm): eval_file rc={line['rc']}")
         log(f"file path warm {line['program']}: best {min(line['seconds']):.3f} s of "
             f"{', '.join(f'{t:.3f}' for t in line['seconds'])}")
+
+
+def time_parse():
+    """Host time of the parse of brickwork-30 at depths 40 and 100: the
+    native route and the Python one of the lexer (equal token lists), and
+    the whole ``parse_openqasm``, which takes the native route; best of 3."""
+    from qubism_torch import native
+    from qubism_torch.models.circuits import brickwork_qasm
+    from qubism_torch.qasm import lexer
+    from qubism_torch.qasm.parser import parse_openqasm
+
+    def best_ms(fn):
+        best, out = float("inf"), None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            best = min(best, time.perf_counter() - t0)
+        return out, best * 1e3
+
+    for depth in (BW_DEEP, BW_DEEPER):
+        src = brickwork_qasm(N_BIG, depth, seed=7, measure=False)
+        path = os.path.join(EXAMPLES, f"<chip_smoke brickwork30_d{depth}>.qasm")
+        nat, nat_ms = best_ms(lambda: native.native_tokenize(src, path))
+        py, py_ms = best_ms(lambda: lexer._tokenize_py(src, path))
+        before = lexer.routes["native"]
+        _, parse_ms = best_ms(lambda: parse_openqasm(path, src))
+        check(native.build_error is None and nat is not None,
+              f"parse depth {depth}: no native lexer ({native.build_error})")
+        check(lexer.routes["native"] - before == 3,
+              f"parse depth {depth}: parse_openqasm did not take the native route")
+        check(nat == py, f"parse depth {depth}: the native and Python token lists differ")
+        log(f"parse brickwork30 depth {depth}: {len(src)} characters, {len(nat)} tokens; "
+            f"native {nat_ms:.1f} ms, python {py_ms:.1f} ms ({py_ms / nat_ms:.2f}x), "
+            f"parse_openqasm {parse_ms:.1f} ms (best of 3); token lists equal")
 
 
 def check_uniform(label, state, n):
@@ -3404,6 +3460,7 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    from qubism_torch import native
     from qubism_torch.config import config
     from qubism_torch.ops import build, kernels, probes
 
@@ -3415,6 +3472,10 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s ({build.library_path()})")
+    t0 = time.perf_counter()
+    check(native.ensure_built() is not None,
+          f"the native lexer did not build: {native.build_error}")
+    log(f"native lexer build: {time.perf_counter() - t0:.1f} s ({native.library_path()})")
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
@@ -3467,6 +3528,7 @@ def main() -> int:
             check(own > 0, f"the {label} never launched the {name} kernel")
 
     time_file_path_warm()  # after the paths' counts were read: not their work
+    time_parse()
     time_probes_beside_library()
 
     torch.cuda.reset_peak_memory_stats()

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from .. import native
 from .ast import SourcePos
 
 RESERVED = {
@@ -43,7 +44,29 @@ class Tok:
     pos: SourcePos
 
 
+#: inputs of this many characters or more go through the native scanner
+#: (:mod:`qubism_torch.native`): generated circuit files reach hundreds of
+#: kilobytes, where the Python loop below is most of the parse
+_NATIVE_THRESHOLD = 1 << 15
+
+#: calls of :func:`tokenize` by the route they took
+routes = {"native": 0, "python": 0}
+
+
 def tokenize(text: str, file: str = "") -> list[Tok]:
+    """The tokens of ``text``, ending in an ``eof`` token. Long inputs go
+    through the native scanner; where it is not built or rejects the text,
+    the Python lexer runs and raises the diagnostic."""
+    if len(text) >= _NATIVE_THRESHOLD:
+        toks = native.native_tokenize(text, file)
+        if toks is not None:
+            routes["native"] += 1
+            return toks
+    routes["python"] += 1
+    return _tokenize_py(text, file)
+
+
+def _tokenize_py(text: str, file: str = "") -> list[Tok]:
     toks: list[Tok] = []
     i, line, col = 0, 1, 1
     n = len(text)

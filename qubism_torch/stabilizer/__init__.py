@@ -6,7 +6,7 @@ from .noise import NotPauliChannelError, StabilizerTrajectoryProgram, pauli_chan
 from .program import StabilizerProgram
 from .tableau import (NotCliffordError, StabilizerSim, Tableau, affine_support,
                       apply_prims, clifford_tables, expectation,
-                      identity_tableau, measure_seq, planes_from_tableau,
+                      identity_tableau, measure_qubit, measure_seq, planes_from_tableau,
                       sample_bits, stabilizer_strings, tableau_from_planes)
 
 __all__ = [
@@ -21,6 +21,7 @@ __all__ = [
     "clifford_tables",
     "expectation",
     "identity_tableau",
+    "measure_qubit",
     "measure_seq",
     "pauli_channel_cdfs",
     "planes_from_tableau",

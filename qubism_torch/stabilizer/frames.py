@@ -45,8 +45,8 @@ from .tableau import (_DET_BATCH_MAX_N, _ID4, _apply_table, _bit, _flip_col,
                       identity_tableau, measure_seq, sample_bits, stats,
                       x_phase_flips)
 
-__all__ = ["frame_run_vals", "frame_run_vals_events", "frame_expectation_sum",
-           "frame_expectations"]
+__all__ = ["frame_run_vals", "frame_run_vals_events", "frame_expectation",
+           "frame_expectation_sum", "frame_expectations"]
 
 
 def _gen(seed, dev) -> torch.Generator:
@@ -163,6 +163,12 @@ def frame_expectations(prog, prims, paulis, ntraj: int, seed=None):
         se = float(signs.std(ddof=1) / np.sqrt(ntraj)) if ntraj > 1 else 0.0
         out.append((float(signs.mean()), se))
     return out
+
+
+def frame_expectation(prog, prims, pauli: str, ntraj: int, seed=None):
+    """Monte-Carlo ``<P>``: the one-term case of
+    :func:`frame_expectation_sum`."""
+    return frame_expectation_sum(prog, prims, ((1.0, pauli),), ntraj, seed)
 
 
 def frame_expectation_sum(prog, prims, terms, ntraj: int, seed=None):

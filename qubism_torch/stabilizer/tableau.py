@@ -60,6 +60,7 @@ __all__ = [
     "apply_prims",
     "affine_support",
     "det_outcomes",
+    "measure_qubit",
     "measure_seq",
     "affine_sample",
     "sample_bits",
@@ -535,6 +536,16 @@ def measure_seq(tab: Tableau, qs, rnd_bits: torch.Tensor, n: int):
         shape = tab.s.shape[:-1] + (0,)
         return torch.zeros(shape, dtype=torch.int32, device=tab.x.device), tab
     return torch.cat(outs, dim=-1), tab
+
+
+def measure_qubit(tab: Tableau, q: int, gen: torch.Generator, n: int):
+    """Measure qubit ``q`` of one tableau in the Z basis; returns (outcome
+    int, tableau, gen). A random outcome is a fair bit drawn from the CPU
+    generator ``gen``, which advances; the JAX package's counterpart takes
+    and returns a key."""
+    rnd = torch.randint(0, 2, (1,), generator=gen, dtype=torch.int32).to(tab.x.device)
+    outs, tab = measure_seq(tab, [q], rnd, n)
+    return int(_host(outs)[0]), tab, gen
 
 
 # -- shot sampling --------------------------------------------------------------
