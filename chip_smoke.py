@@ -18,8 +18,7 @@ call first held against the plain version; a lane or diag call prepares
 and uploads its operands, so
 their lines also give the kernel on operands prepared once). Then it drives
 fifteen paths, each with the launch counters set to 0 just before it and read
-just after (a ``phase <path>: diag launches by (factors, widest k)`` line
-gives the shapes of its diag passes). The device-operand modes of K1, K4
+just after. The device-operand modes of K1, K4
 and K3 (``gate_dev``, ``layer1q_dev``, ``lane_dev``: the matrix read from
 device memory) are held against their plain versions and their parameter
 modes at n = 20 and 30 (K1 at k = 1..4, K4 at m = 1..6), the lane operand
@@ -3519,8 +3518,6 @@ def main() -> int:
             + (f" (in timing calls {timed})" if timed else "")
             + (f" (by the single-device reference {ref})" if ref else "")
             + f", peak {max(PEAK[0], torch.cuda.max_memory_allocated()) / 2**30:.1f} GiB")
-        log(f"phase {label}: diag launches by (factors, widest k): "
-            f"{ {f'{f}x{k}': c for (f, k), c in sorted(kernels.diag_shapes.items())} }")
         for name in KERNELS:
             report[name]["launches"] += launches[name] - ref.get(name, 0)
         for name in PATH_KERNELS[label]:

@@ -39,6 +39,7 @@ from .qasm.parser import (
 )
 from .run.interpreter import Interpreter, run_program
 from .run.progstate import ProgState, QasmRuntimeError, blank_state
+from .utils import profiling
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -130,7 +131,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="directory REPL 'include' statements resolve against "
                         "(file mode resolves relative to the includer)")
     p.add_argument("--verbose", action="store_true",
-                   help="per-statement timing to stderr")
+                   help="one stderr line a program: host ms by span (parse, "
+                        "interpreter, fusion, syncs, sampling) and the counts "
+                        "of syncs, prims and fused ops")
     return p
 
 
@@ -140,8 +143,6 @@ def _apply_flags(args):
 
         _parser.INCLUDE_PATH.extend(args.include_path)
     if args.verbose:
-        from .utils import profiling
-
         profiling.VERBOSE = True
     if args.dtype == "complex128":
         raise SystemExit(
@@ -197,98 +198,99 @@ def eval_file(path: str, seed: int | None = None, dump_state: bool = False,
         except OSError as e:
             print(f"qubism: {e}", file=out)
             return 2
-    try:
-        ast = parse_openqasm(path, source)
-    except QasmParseError as e:
-        out.write(e.pretty())
-        return 1
-    try:
-        from .ops.apply import device
+    with profiling.program():
+        try:
+            ast = parse_openqasm(path, source)
+        except QasmParseError as e:
+            out.write(e.pretty())
+            return 1
+        try:
+            from .ops.apply import device
 
-        device()
-    except RuntimeError as e:
-        print(f"qubism: {e}", file=out)
-        return 2
-    try:
-        if backend == "density":
-            rc, ps = _run_density(ast, noise, mesh, compile_mode or trajectories,
-                                  seed, dump_state, shots, observables, out)
-            if rc:
-                return rc
-        elif noise is not None or trajectories is not None:
-            rc = _run_trajectories(ast, noise, trajectories, traj_engine, mesh,
-                                   compile_mode, seed, shots, observables, out, backend, chi)
-            if rc:
-                return rc
-            print("Done.", file=out)
-            return 0
-        elif backend == "stabilizer":
-            from .stabilizer import NotCliffordError, StabilizerProgram
-
-            rc, ps = _run_sim_program(backend, lambda: StabilizerProgram(ast),
-                                      NotCliffordError, mesh, seed, dump_state, shots,
-                                      observables, out)
-            if rc:
-                return rc
-        elif backend == "mps":
-            from .mps import MPSProgram, NotAdjacentError
-
-            rc, ps = _run_sim_program(
-                backend, lambda: MPSProgram(ast, chi=chi, trunc_budget=trunc_budget,
-                                            max_chi=max_chi),
-                (NotAdjacentError, FloatingPointError), mesh, seed, dump_state, shots,
-                observables, out)
-            if rc:
-                return rc
-        elif mesh:
-            from .run.compiler import CompiledProgram
-
-            prog = CompiledProgram(ast, max_block=fuse_width)
-            try:
-                devices = prog.mesh_devices(mesh)
-            except ValueError as e:
-                print(f"qubism: --mesh {mesh}: {e}", file=out)
-                return 2
-            ps, sim = _run_mesh(prog, devices, seed, dump_state, shots, out)
-            if observables and prog.n:
-                rc = _print_observables(observables, sim.expectation, out)
+            device()
+        except RuntimeError as e:
+            print(f"qubism: {e}", file=out)
+            return 2
+        try:
+            if backend == "density":
+                rc, ps = _run_density(ast, noise, mesh, compile_mode or trajectories,
+                                      seed, dump_state, shots, observables, out)
                 if rc:
                     return rc
-        elif compile_mode:
-            from .run.compiler import CompiledProgram
-
-            prog = CompiledProgram(ast, max_block=fuse_width)
-            state, cregs, gen = prog.run(seed=seed, dump_writer=out.write)
-            if dump_state:
-                out.write(prog._pretty(state, cregs))
-            ps = prog.prog_state(state, cregs, gen)
-            if shots:
-                _print_shot_counts(ps, shots, out)
-            if observables and prog.n:
-                from .ops.measure import expectation_pauli
-
-                rc = _print_observables(
-                    observables, lambda p_: expectation_pauli(state, prog.n, p_), out)
+            elif noise is not None or trajectories is not None:
+                rc = _run_trajectories(ast, noise, trajectories, traj_engine, mesh,
+                                       compile_mode, seed, shots, observables, out, backend, chi)
                 if rc:
                     return rc
-        else:
-            ps = run_program(ast, seed=seed)
-            if dump_state:
-                out.write(ps.pretty())
-            if shots:
-                _print_shot_counts(ps, shots, out)
-            if observables and ps.qregs:
-                rc = _print_observables(
-                    observables, lambda p_: _interp_expectation(ps, p_), out)
+                print("Done.", file=out)
+                return 0
+            elif backend == "stabilizer":
+                from .stabilizer import NotCliffordError, StabilizerProgram
+
+                rc, ps = _run_sim_program(backend, lambda: StabilizerProgram(ast),
+                                          NotCliffordError, mesh, seed, dump_state, shots,
+                                          observables, out)
                 if rc:
                     return rc
-    except QasmRuntimeError as e:
-        print(e, file=out)
-        return 1
-    if inspect is not None:
-        inspect(ps)
-    print("Done.", file=out)
-    return 0
+            elif backend == "mps":
+                from .mps import MPSProgram, NotAdjacentError
+
+                rc, ps = _run_sim_program(
+                    backend, lambda: MPSProgram(ast, chi=chi, trunc_budget=trunc_budget,
+                                                max_chi=max_chi),
+                    (NotAdjacentError, FloatingPointError), mesh, seed, dump_state, shots,
+                    observables, out)
+                if rc:
+                    return rc
+            elif mesh:
+                from .run.compiler import CompiledProgram
+
+                prog = CompiledProgram(ast, max_block=fuse_width)
+                try:
+                    devices = prog.mesh_devices(mesh)
+                except ValueError as e:
+                    print(f"qubism: --mesh {mesh}: {e}", file=out)
+                    return 2
+                ps, sim = _run_mesh(prog, devices, seed, dump_state, shots, out)
+                if observables and prog.n:
+                    rc = _print_observables(observables, sim.expectation, out)
+                    if rc:
+                        return rc
+            elif compile_mode:
+                from .run.compiler import CompiledProgram
+
+                prog = CompiledProgram(ast, max_block=fuse_width)
+                state, cregs, gen = prog.run(seed=seed, dump_writer=out.write)
+                if dump_state:
+                    out.write(prog._pretty(state, cregs))
+                ps = prog.prog_state(state, cregs, gen)
+                if shots:
+                    _print_shot_counts(ps, shots, out)
+                if observables and prog.n:
+                    from .ops.measure import expectation_pauli
+
+                    rc = _print_observables(
+                        observables, lambda p_: expectation_pauli(state, prog.n, p_), out)
+                    if rc:
+                        return rc
+            else:
+                ps = run_program(ast, seed=seed)
+                if dump_state:
+                    out.write(ps.pretty())
+                if shots:
+                    _print_shot_counts(ps, shots, out)
+                if observables and ps.qregs:
+                    rc = _print_observables(
+                        observables, lambda p_: _interp_expectation(ps, p_), out)
+                    if rc:
+                        return rc
+        except QasmRuntimeError as e:
+            print(e, file=out)
+            return 1
+        if inspect is not None:
+            inspect(ps)
+        print("Done.", file=out)
+        return 0
 
 
 def _run_trajectories(ast, noise, trajectories, traj_engine, mesh, compile_mode, seed,
@@ -434,12 +436,10 @@ def _run_mesh(prog, devices, seed, dump_state, shots, out):
     ProgState with no state vector, the ShardedSim or None)."""
     import numpy as np
 
-    from .utils.profiling import vlog
-
     sim, cregs, gen = prog.run_sharded(mesh=devices, seed=seed, dump_writer=out.write)
     if sim is not None:
-        vlog(f"mesh run: {sim.D} device(s) x 2^{sim.w} bank(s), {sim.m} local "
-             f"qubits/bank, {sim.dispatch_count} segments, swaps and measurements")
+        profiling.vlog(f"mesh run: {sim.D} device(s) x 2^{sim.w} bank(s), {sim.m} local "
+                       f"qubits/bank, {sim.dispatch_count} segments, swaps and measurements")
     if dump_state and prog.n:
         out.write(prog._pretty_for(prog.sim_state(sim), cregs))
     if shots and prog.n:

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..config import config
+from ..utils import profiling
 
 #: log2 of the lane block: the last _COL qubits form the rows that the lane
 #: kernel (ops/kernels.py:lane) multiplies by one dense 128x128 matrix.
@@ -71,10 +72,38 @@ def complex_from_state(t: torch.Tensor) -> np.ndarray:
     return t.detach().reshape(-1).cpu().numpy().astype(np.complex128)
 
 
+def to_device(a: np.ndarray, dev) -> torch.Tensor:
+    """The host array ``a`` as a tensor on ``dev``. To a device other than
+    the CPU it is a copy from pageable memory, which PyTorch makes
+    synchronously (an async copy, then a wait for the stream): it counts
+    under ``syncs`` and runs in a ``qubism.sync`` span. On the CPU the
+    tensor shares ``a``'s memory and counts nothing."""
+    if torch.device(dev).type == "cpu":
+        return torch.from_numpy(a)
+    profiling.count("syncs")
+    with profiling.span("qubism.sync"):
+        return torch.from_numpy(a).to(dev)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """The tensor ``t`` as a host numpy array. From a device other than the
+    CPU it is a synchronous copy, which waits for the work queued before
+    it: it counts under ``syncs`` and runs in a ``qubism.sync`` span. A CPU
+    tensor's array shares its memory and counts nothing."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    profiling.count("syncs")
+    with profiling.span("qubism.sync"):
+        return t.cpu().numpy()
+
+
+_ONE = np.ones(1, dtype=np.complex64)
+
+
 def zero_state(n: int) -> torch.Tensor:
     """|0...0> on n qubits."""
     s = torch.zeros(1 << n, dtype=torch.complex64, device=device())
-    s[0] = 1
+    s[:1].copy_(to_device(_ONE, s.device))
     return s
 
 
@@ -83,7 +112,7 @@ def as_operand(a, like: torch.Tensor) -> torch.Tensor:
     ``like``'s device."""
     if isinstance(a, torch.Tensor):
         return a.to(device=like.device, dtype=torch.complex64)
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.complex64)).to(like.device)
+    return to_device(np.ascontiguousarray(a, dtype=np.complex64), like.device)
 
 
 # ---------------------------------------------------------------------------

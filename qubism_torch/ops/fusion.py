@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..core.gates import Prim, is_diagonal
+from ..utils import profiling
 from . import apply as _apply
 from . import kernels
 
@@ -222,6 +223,12 @@ def fuse(prims, n: int, max_block: int = DEFAULT_MAX_BLOCK,
     A prim that touches a qubit below ``keep_separate_below`` (the bank bits
     of the mesh path, which :func:`split_op_virtual` splits off) merges with
     no other prim, though diagonals still join a diagonal layer."""
+    with profiling.span("qubism.fuse"):
+        return _fuse(prims, n, max_block, stage_group, keep_separate_below)
+
+
+def _fuse(prims, n: int, max_block: int, stage_group: int | None,
+          keep_separate_below: int) -> list:
     max_block = min(max_block, MAX_BLOCK)
     stage_group = STAGE_GROUP if stage_group is None else stage_group
     if not 1 <= stage_group <= 4:
@@ -332,26 +339,32 @@ def plan(op, n: int, device="cpu"):
     ``kernels.KERNEL_FNS[name]`` = (wrapper, plain version), each applying
     the op as ``fn(state, *args, n)``. The operands the kernel reads from
     device memory are uploaded to ``device`` here, once."""
-    if isinstance(op, StageBlockOp):
-        return "stage", (kernels.stage_block_prepare(op.stages, n, device),)
-    if isinstance(op, DiagLayer):
-        return "diag", (kernels.diag_prepare(op.factors, n, device),)
-    if isinstance(op, Layer1QOp):
-        return "layer1q", (op.gates,)
-    b = max(n - _apply._COL, 0)
-    if all(t >= b for t in op.targets):
-        return "lane", (kernels.lane_prepare(_apply.expand_for_view(op.u, n, op.targets),
-                                             n, device),)
-    if len(op.targets) <= MAX_BLOCK:
-        return "gate", (op.u, op.targets)
-    raise ValueError(f"no kernel for a dense block on {op.targets} "
-                     f"(more than {MAX_BLOCK} targets off the lane block)")
+    with profiling.span("qubism.plan"):
+        if isinstance(op, StageBlockOp):
+            return "stage", (kernels.stage_block_prepare(op.stages, n, device),)
+        if isinstance(op, DiagLayer):
+            return "diag", (kernels.diag_prepare(op.factors, n, device),)
+        if isinstance(op, Layer1QOp):
+            return "layer1q", (op.gates,)
+        b = max(n - _apply._COL, 0)
+        if all(t >= b for t in op.targets):
+            return "lane", (kernels.lane_prepare(
+                _apply.expand_for_view(op.u, n, op.targets), n, device),)
+        if len(op.targets) <= MAX_BLOCK:
+            return "gate", (op.u, op.targets)
+        raise ValueError(f"no kernel for a dense block on {op.targets} "
+                         f"(more than {MAX_BLOCK} targets off the lane block)")
 
 
 def apply_prims_fused(state, prims, n: int):
     """Apply a run of prims to an n-qubit state in place, one kernel pass
-    per fused op. Returns the state."""
-    for op in fuse(list(prims), n, MAX_BLOCK):
+    per fused op; counts the prims under ``prims`` and the fused ops under
+    ``fused_ops`` (``utils.profiling.counters``). Returns the state."""
+    prims = list(prims)
+    ops = fuse(prims, n, MAX_BLOCK)
+    profiling.count("prims", len(prims))
+    profiling.count("fused_ops", len(ops))
+    for op in ops:
         name, args = plan(op, n, state.device)
         kernels.KERNEL_FNS[name][0](state, *args, n)
     return state

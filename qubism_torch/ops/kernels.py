@@ -38,13 +38,11 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from .apply import _COL, as_operand, canonical_device, target_view
+from ..utils import profiling
+from .apply import _COL, as_operand, canonical_device, target_view, to_device
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {"gate": 0, "diag": 0, "lane": 0, "layer1q": 0, "stage": 0, "butterfly": 0}
-#: the diag launches among them by (factors in the pass, widest factor's
-#: qubits; 0 = only (mask, value, phase) factors)
-diag_shapes: dict = {}
 
 #: widest diagonal factor held as a table (2^7 entries: the widest factor
 #: fusion emits, a pure-lane union). Wider factors are split exactly into
@@ -69,9 +67,11 @@ _LAYER1Q_MAX = 6
 
 
 def reset_launches():
+    """Zero :data:`launches` and clear the port's counters
+    (``utils.profiling.counters``)."""
     for k in launches:
         launches[k] = 0
-    diag_shapes.clear()
+    profiling.counters.clear()
 
 
 def _check_state(state: torch.Tensor, n: int):
@@ -316,7 +316,7 @@ def lane_prepare(u, n: int, device) -> LanePlan:
     if device.type != "cpu":
         host = (lane_parts(u) if lanes == 128
                 else np.ascontiguousarray(u.T, dtype=np.complex64))
-        dev = torch.from_numpy(host).to(device)
+        dev = to_device(host, device)
     return LanePlan(u, device, dev)
 
 
@@ -465,14 +465,12 @@ class DiagPass:
     ``ninv`` descriptors are the factors that touch none of those bits.
     ``single`` = (positions, table) marks a pass of one factor on one or two
     qubits, which takes the kernel without descriptors (``tables`` and
-    ``desc`` are then None). ``shape`` = (factors, widest factor's qubits)
-    is what :data:`diag_shapes` counts."""
+    ``desc`` are then None)."""
 
     tables: object
     desc: object
     ninv: int
     own: tuple
-    shape: tuple
     single: tuple | None = None
 
 
@@ -570,12 +568,11 @@ def _diag_passes(factors, n: int) -> list:
     out = []
     for group in passes:
         k, table, where = group[0]
-        shape = (len(group), max(k for k, _, _ in group))
         if len(group) == 1 and 1 <= k <= 2 and n >= 1:
-            out.append(DiagPass(None, None, 0, (), shape, (
+            out.append(DiagPass(None, None, 0, (), (
                 np.ascontiguousarray(where, dtype=np.int64), table.astype(np.complex64))))
         else:
-            out.append(DiagPass(*_diag_descriptors(group, n), shape))
+            out.append(DiagPass(*_diag_descriptors(group, n)))
     return out
 
 
@@ -597,8 +594,8 @@ def diag_prepare(factors, n: int, device) -> DiagPlan:
     passes = ()
     if device.type != "cpu":
         passes = tuple(
-            p if p.single else replace(p, tables=torch.from_numpy(p.tables).to(device),
-                                       desc=torch.from_numpy(p.desc).to(device))
+            p if p.single else replace(p, tables=to_device(p.tables, device),
+                                       desc=to_device(p.desc, device))
             for p in _diag_passes(factors, n))
     return DiagPlan(factors, device, passes)
 
@@ -625,7 +622,6 @@ def diag(state: torch.Tensor, factors, n: int) -> torch.Tensor:
             _launch(state, "diag", lambda lib, d, s: lib.qk_diag(
                 _ptr(state), n, _ptr(p.tables), p.tables.numel(), _ptr(p.desc),
                 p.desc.shape[0], p.ninv, len(own), _host(own), d, s))
-        diag_shapes[p.shape] = diag_shapes.get(p.shape, 0) + 1
     return state
 
 
@@ -724,7 +720,7 @@ def stage_block_prepare(stages, n: int, device) -> StagePlan:
     device = canonical_device(device)
     dev_tables = None
     if device.type != "cpu" and chunks:
-        dev_tables = torch.from_numpy(tables.astype(np.complex64)).to(device)
+        dev_tables = to_device(tables.astype(np.complex64), device)
     return StagePlan(stages, targets, coef, tables, device, dev_tables)
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..config import config
+from .apply import to_host
 
 
 def draw(gen: torch.Generator | None, k: int, uniforms=None) -> np.ndarray:
@@ -83,7 +84,7 @@ def _run_view(n: int, measured):
 def marginal_table(state: torch.Tensor, n: int, measured) -> np.ndarray:
     """|a|^2 summed over the unmeasured qubits: a (2^k,) float64 host table,
     bit order = sorted(measured), MSB = smallest qubit."""
-    return marginal_table_dev(state, n, measured).double().cpu().numpy()
+    return to_host(marginal_table_dev(state, n, measured).double())
 
 
 def marginal_table_dev(state: torch.Tensor, n: int, measured) -> torch.Tensor:

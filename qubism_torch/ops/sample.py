@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
+from .apply import to_device, to_host
 from .measure import draw
 
 #: leaf row width of the two-level search
@@ -46,9 +48,9 @@ def sample_indices(state: torch.Tensor, n: int, shots: int,
                    gen: torch.Generator | None = None, uniforms=None) -> np.ndarray:
     """Sample ``shots`` basis-state indices; (shots,) int64 on the host.
     ``uniforms`` (shots floats in [0, 1)) replaces the generator's draws."""
-    u = torch.from_numpy(draw(gen, shots, uniforms)).to(state.device)
+    u = to_device(draw(gen, shots, uniforms), state.device)
     cdf = row_cdf(state, n)
-    return search(state, n, u * cdf[-1], cdf).cpu().numpy()
+    return to_host(search(state, n, u * cdf[-1], cdf))
 
 
 def sample_into(state: torch.Tensor, n: int, u: torch.Tensor, out: torch.Tensor,
@@ -70,6 +72,7 @@ def sample_into(state: torch.Tensor, n: int, u: torch.Tensor, out: torch.Tensor,
 def sample_counts(state: torch.Tensor, n: int, shots: int,
                   gen: torch.Generator | None = None) -> dict[str, int]:
     """Sample and histogram: returns {big-endian bitstring: count}."""
-    idx = sample_indices(state, n, shots, gen)
-    vals, counts = np.unique(idx, return_counts=True)
-    return {format(int(v), f"0{n}b"): int(c) for v, c in zip(vals, counts)}
+    with profiling.span("qubism.sample"):
+        idx = sample_indices(state, n, shots, gen)
+        vals, counts = np.unique(idx, return_counts=True)
+        return {format(int(v), f"0{n}b"): int(c) for v, c in zip(vals, counts)}

@@ -19,6 +19,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from .. import native
+from ..utils import profiling
 from .ast import SourcePos
 
 RESERVED = {
@@ -57,13 +58,14 @@ def tokenize(text: str, file: str = "") -> list[Tok]:
     """The tokens of ``text``, ending in an ``eof`` token. Long inputs go
     through the native scanner; where it is not built or rejects the text,
     the Python lexer runs and raises the diagnostic."""
-    if len(text) >= _NATIVE_THRESHOLD:
-        toks = native.native_tokenize(text, file)
-        if toks is not None:
-            routes["native"] += 1
-            return toks
-    routes["python"] += 1
-    return _tokenize_py(text, file)
+    with profiling.span("qubism.lex"):
+        if len(text) >= _NATIVE_THRESHOLD:
+            toks = native.native_tokenize(text, file)
+            if toks is not None:
+                routes["native"] += 1
+                return toks
+        routes["python"] += 1
+        return _tokenize_py(text, file)
 
 
 def _tokenize_py(text: str, file: str = "") -> list[Tok]:

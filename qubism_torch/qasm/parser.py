@@ -34,6 +34,7 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass, field
 
+from ..utils import profiling
 from . import ast as A
 from .lexer import LexError, Tok, tokenize
 
@@ -110,15 +111,15 @@ def parse_openqasm_incremental(state: ParserState, text: str) -> tuple[list[A.St
     Returns (ast, new_state); the input state is never mutated, so a failed
     line is atomic.
     """
-    new_state = state.copy()
-    file = new_state.file_path or ""
-    try:
-        toks = tokenize(text, file)
-    except LexError as e:
-        raise QasmParseError(e.pos, e.message, e.source_line) from None
-    p = _Parser(toks, text.splitlines(), new_state.id_table, new_state.file_path)
-    ast = p.program()
-    return ast, new_state
+    with profiling.span("qubism.parse"):
+        new_state = state.copy()
+        file = new_state.file_path or ""
+        try:
+            toks = tokenize(text, file)
+        except LexError as e:
+            raise QasmParseError(e.pos, e.message, e.source_line) from None
+        p = _Parser(toks, text.splitlines(), new_state.id_table, new_state.file_path)
+        return p.program(), new_state
 
 
 class _Parser:

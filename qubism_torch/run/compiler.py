@@ -209,35 +209,32 @@ class CompiledProgram:
         state is one complex64 tensor (None for a program with no qubits),
         the generator the CPU ``torch.Generator`` seeded from ``seed`` that
         drew the measurements."""
-        from ..utils.profiling import vtimed
-
         dump_writer = dump_writer or (lambda s: None)
         gen = torch.Generator().manual_seed(0 if seed is None else seed)
         state = _apply.zero_state(self.n) if self.n else None
         cregs = dict(self.cregs0)
 
-        def exec_events(events, path="r"):
-            for i, ev in enumerate(events):
-                with vtimed(f"{path}[{i}] {type(ev).__name__}"):
-                    if isinstance(ev, EvGates):
-                        self._segment(ev)(state)
-                    elif isinstance(ev, EvMeasure):
-                        bits = _measure.measure_qubits(state, gen, ev.qubits, self.n)
-                        off = 0
-                        for creg, bit_index, count in ev.writes:
-                            if bit_index is None:
-                                cregs[creg] = CReg.of(bits[off:off + count])
-                            else:
-                                cregs[creg] = cregs[creg].set_bit(bit_index, bits[off])
-                            off += count
-                    elif isinstance(ev, EvReset):
-                        for q in ev.qubits:
-                            _measure.collapse(state, 0, q, self.n)
-                    elif isinstance(ev, EvCond):
-                        if cregs[ev.creg].to_natural() == ev.value:
-                            exec_events(ev.body, path + f".c{i}")
-                    elif isinstance(ev, EvDump):
-                        dump_writer(self._pretty(state, cregs))
+        def exec_events(events):
+            for ev in events:
+                if isinstance(ev, EvGates):
+                    self._segment(ev)(state)
+                elif isinstance(ev, EvMeasure):
+                    bits = _measure.measure_qubits(state, gen, ev.qubits, self.n)
+                    off = 0
+                    for creg, bit_index, count in ev.writes:
+                        if bit_index is None:
+                            cregs[creg] = CReg.of(bits[off:off + count])
+                        else:
+                            cregs[creg] = cregs[creg].set_bit(bit_index, bits[off])
+                        off += count
+                elif isinstance(ev, EvReset):
+                    for q in ev.qubits:
+                        _measure.collapse(state, 0, q, self.n)
+                elif isinstance(ev, EvCond):
+                    if cregs[ev.creg].to_natural() == ev.value:
+                        exec_events(ev.body)
+                elif isinstance(ev, EvDump):
+                    dump_writer(self._pretty(state, cregs))
 
         exec_events(self.events)
         # the recursive closure is a reference cycle that holds the state:

@@ -30,6 +30,7 @@ from ..core.creg import CReg
 from ..core.gates import Prim, is_diagonal, u3_matrix
 from ..ops import measure as _measure
 from ..qasm import ast as A
+from ..utils import profiling
 from .progstate import CustomGate, ProgState, blank_state
 
 _CNOT = np.array(
@@ -50,16 +51,13 @@ def run_program_incremental(ast, ps: ProgState) -> ProgState:
     intact — the REPL's atomic-line contract. The kernels update states in
     place, so the new state starts from ``ps.copy()``'s clones of the
     caller's tensors (a run from a blank state clones nothing)."""
-    from ..utils.profiling import vtimed
-
-    new = ps.copy()
-    interp = Interpreter(new)
-
-    for i, stmt in enumerate(ast):
-        with vtimed(f"stmt[{i}] line {getattr(getattr(stmt, 'pos', None), 'line', '?')}"):
+    with profiling.span("qubism.interp"):
+        new = ps.copy()
+        interp = Interpreter(new)
+        for stmt in ast:
             interp.run_stmt(stmt)
-    interp.flush()  # materialize any trailing unitary run
-    return new
+        interp.flush()  # materialize any trailing unitary run
+        return new
 
 
 class Interpreter:
@@ -90,7 +88,8 @@ class Interpreter:
             if not prims:
                 continue
             sv = ps.stvecs[t]
-            apply_prims_fused(sv.state, prims, sv.n)
+            with profiling.span("qubism.flush"):
+                apply_prims_fused(sv.state, prims, sv.n)
 
     def flush(self):
         """Materialize all pending gates (end of program / REPL line)."""

@@ -1,7 +1,19 @@
-"""Timing and tracing: the CLI's ``--verbose`` per-statement timing,
-``trace`` (a ``torch.profiler`` trace for Perfetto or chrome://tracing),
-``timed`` (seconds per call) and ``hbm_fraction`` (a pass count against
-the card's memory rate), and ``count_ops``."""
+"""Timing and tracing: the port's spans and counters (:func:`span`,
+:func:`count`, :data:`counters`) and the CLI's ``--verbose`` line built from
+them, ``trace`` (a ``torch.profiler`` trace for Perfetto or
+chrome://tracing), ``timed`` (seconds per call) and ``hbm_fraction`` (a pass
+count against the card's memory rate), and ``count_ops``.
+
+A span marks where the port's host works: ``qubism.program`` (one file),
+``qubism.parse``, ``qubism.lex``, ``qubism.interp``, ``qubism.flush``,
+``qubism.fuse``, ``qubism.plan``, ``qubism.sync`` (a copy between host and
+device) and ``qubism.sample``, each nested in its caller. Under a running
+``torch.profiler`` a span is a ``record_function`` on the profiler's clock,
+the clock of the device's work in the same trace; under ``--verbose`` its
+host time is summed by name; otherwise it is a shared no-op context.
+This module imports nothing of the package but its configuration, so that
+any module of it can import this one.
+"""
 
 from __future__ import annotations
 
@@ -11,13 +23,26 @@ import sys
 import time
 
 import torch
+import torch.autograd.profiler
+from torch.autograd.profiler import record_function
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..config import config
-from ..ops.probes import PEAK_BYTES_PER_S
 
-#: set by the CLI's --verbose flag: per-statement timing to stderr
+#: set by the CLI's --verbose flag: one stderr line a program with the host
+#: ms of each span name and the counters (:func:`program`)
 VERBOSE = False
+
+#: events since the last ``ops.kernels.reset_launches()``: ``syncs`` (copies
+#: across the host/device boundary, ``ops.apply.to_device`` / ``to_host``),
+#: ``prims`` and ``fused_ops`` (what each interpreter flush hands to
+#: ``ops.fusion.fuse`` and gets back)
+counters: dict[str, int] = {}
+
+#: host seconds in each span name while VERBOSE, in the current program
+span_s: dict[str, float] = {}
+
+_OFF = contextlib.nullcontext()
 
 
 def vlog(msg: str):
@@ -25,19 +50,55 @@ def vlog(msg: str):
         print(f"[qubism] {msg}", file=sys.stderr, flush=True)
 
 
+def profiler_on() -> bool:
+    """Whether a torch profiler is recording: the flag torch keeps for fast
+    checks from Python."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """A context for the work of one span named ``name``: a
+    ``record_function`` while a torch profiler records, timed on the host
+    clock into :data:`span_s` when VERBOSE (never a synchronisation: the
+    device's work is only enqueued), else a shared no-op context."""
+    if VERBOSE:
+        return _timed(name)
+    if profiler_on():
+        return record_function(name)
+    return _OFF
+
+
 @contextlib.contextmanager
-def vtimed(label: str):
-    """Time a block when VERBOSE. Kernels run asynchronously on the card,
-    so the block's end waits for the device (torch.cuda.synchronize)."""
-    if not VERBOSE:
-        yield
-        return
+def _timed(name: str):
     t0 = time.perf_counter()
     try:
-        yield
+        with record_function(name) if profiler_on() else _OFF:
+            yield
     finally:
-        _sync()
-        vlog(f"{label}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        span_s[name] = span_s.get(name, 0.0) + time.perf_counter() - t0
+
+
+def count(name: str, k: int = 1):
+    """Add ``k`` to the counter ``name``."""
+    counters[name] = counters.get(name, 0) + k
+
+
+@contextlib.contextmanager
+def program():
+    """The ``qubism.program`` span of one program. Under VERBOSE its end
+    prints the --verbose line: the host ms of each span name in the program
+    and how far each reported counter rose over it."""
+    since = dict(counters)
+    try:
+        with span("qubism.program"):
+            yield
+    finally:
+        if VERBOSE:
+            spans = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in span_s.items())
+            counts = ", ".join(f"{k} {counters.get(k, 0) - since.get(k, 0)}"
+                               for k in ("syncs", "prims", "fused_ops"))
+            vlog(f"program: host ms {spans}; {counts}")
+            span_s.clear()
 
 
 def _sync():
@@ -82,11 +143,13 @@ def timed(fn, *args, reps: int = 5, warmup: int = 1) -> float:
 
 
 def hbm_fraction(n_qubits: int, passes: int, seconds: float,
-                 peak_bw: float = PEAK_BYTES_PER_S) -> float:
+                 peak_bw: float | None = None) -> float:
     """Share of the memory rate ``peak_bw`` (bytes/s; default one H100
-    SXM's published HBM3 rate) that ``passes`` full passes over an n-qubit
-    complex64 state in ``seconds`` reach: a pass reads and writes the
-    state once, 16 bytes an amplitude."""
+    SXM's published HBM3 rate, ``ops.probes.PEAK_BYTES_PER_S``) that
+    ``passes`` full passes over an n-qubit complex64 state in ``seconds``
+    reach: a pass reads and writes the state once, 16 bytes an amplitude."""
+    if peak_bw is None:
+        from ..ops.probes import PEAK_BYTES_PER_S as peak_bw
     bytes_per_pass = 2 * 8 * (1 << n_qubits)
     return passes * bytes_per_pass / seconds / peak_bw
 

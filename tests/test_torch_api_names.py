@@ -76,6 +76,7 @@ LEFT_OUT = {
     "stabilizer/frames.py": _JAX_IMPORTS,
     "stabilizer/noise.py": _JAX_IMPORTS,
     "stabilizer/tableau.py": _JAX_IMPORTS,
+    "utils/profiling.py": {"vtimed"},
 }
 #: what the port calls the reference's names it renamed
 RENAMED = {"pallas_adjoint_value_and_grad_fn": "kernel_adjoint_value_and_grad_fn",

@@ -1,0 +1,175 @@
+"""The port's own spans and counters (``qubism_torch.utils.profiling``): the
+spans a file opens under ``torch.profiler`` and how they nest, the counters
+of a flush, the host/device copies (none on the CPU), nothing entered while
+neither a profiler nor ``--verbose`` is on, and the ``--verbose`` line."""
+
+import io
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from qubism_torch.cli import eval_file  # noqa: E402
+from qubism_torch.config import config  # noqa: E402
+from qubism_torch.core.gates import Prim  # noqa: E402
+from qubism_torch.ops import apply, fusion, kernels  # noqa: E402
+from qubism_torch.qasm.parser import parse_openqasm  # noqa: E402
+from qubism_torch.run.interpreter import run_program  # noqa: E402
+from qubism_torch.utils import profiling  # noqa: E402
+
+EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
+PATH = os.path.join(EXAMPLES, "traced.qasm")  # includes resolve to examples/qelib1.inc
+
+#: a user gate, a cz (qelib1: h, cx, h) and a wide enough register for
+#: several fused ops; the shots run the sampler
+SOURCE = """OPENQASM 2.0;
+include "qelib1.inc";
+gate zz(t) a, b { cx a, b; rz(t) b; cx a, b; }
+qreg q[10];
+creg c[10];
+h q;
+cz q[0], q[1];
+zz(0.3) q[2], q[3];
+t q[4];
+cx q[0], q[9];
+u3(0.1, 0.2, 0.3) q[8];
+"""
+#: its prims: h is one U each; cz is h, cx, h; the user gate cx, rz (one
+#: U), cx; t, cx and u3 one each
+PRIMS = 10 + 3 + 3 + 1 + 1 + 1
+
+#: each span of a file and the span it runs in
+PARENT = {
+    "qubism.parse": "qubism.program",
+    "qubism.lex": "qubism.parse",
+    "qubism.interp": "qubism.program",
+    "qubism.flush": "qubism.interp",
+    "qubism.fuse": "qubism.flush",
+    "qubism.plan": "qubism.flush",
+    "qubism.sample": "qubism.program",
+}
+
+
+@pytest.fixture(autouse=True)
+def cpu_device(monkeypatch):
+    monkeypatch.setattr(config, "device", "cpu")
+    monkeypatch.setattr(profiling, "VERBOSE", False)
+    kernels.reset_launches()
+
+
+def _run(shots=64):
+    out = io.StringIO()
+    assert eval_file(PATH, source=SOURCE, seed=3, shots=shots, out=out) == 0
+    return out.getvalue()
+
+
+def _spans(prof):
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.name.startswith("qubism.")]
+
+
+def _parent(span, spans):
+    """The innermost other span that holds ``span``."""
+    name, s, e = span
+    holders = [sp for sp in spans if sp is not span and sp[1] <= s and e <= sp[2]]
+    return min(holders, key=lambda sp: sp[2] - sp[1])[0] if holders else None
+
+
+def test_a_file_opens_every_span_nested_in_its_caller():
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert "Done." in _run()
+    spans = _spans(prof)
+    names = {name for name, _, _ in spans}
+    assert names == {"qubism.program", *PARENT}
+    (program,) = [sp for sp in spans if sp[0] == "qubism.program"]
+    for sp in spans:
+        if sp is not program:
+            assert _parent(sp, spans) == PARENT[sp[0]], sp[0]
+            assert program[1] <= sp[1] and sp[2] <= program[2]
+    # qelib1.inc is lexed inside the parse as well as the file
+    assert sum(name == "qubism.lex" for name, _, _ in spans) == 2
+    assert sum(name == "qubism.plan" for name, _, _ in spans) == profiling.counters["fused_ops"]
+
+
+def test_counters_of_a_flush_are_its_prims_and_fused_ops():
+    rng = np.random.default_rng(5)
+    n = 9
+    prims = []
+    for q in (0, 3, 5, 8, 2, 7):
+        a, b = rng.normal(size=2)
+        prims.append(Prim(np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]) *
+                          np.exp(1j * b), (q,)))
+    prims.append(Prim(np.diag([1, 1, 1, -1]).astype(complex), (1, 4)))
+    prims.append(Prim(np.eye(4)[[0, 1, 3, 2]].astype(complex), (6, 2)))
+    prims.append(Prim(np.array([1, np.exp(0.4j)]), (5,), True))
+    state = apply.zero_state(n)
+    fusion.apply_prims_fused(state, prims, n)
+    ops = fusion.fuse(prims, n, fusion.MAX_BLOCK)
+    assert profiling.counters == {"prims": len(prims), "fused_ops": len(ops)}
+    assert 1 < len(ops) < len(prims)
+
+
+def test_the_interpreter_counts_the_prims_qelib1_expands():
+    run_program(parse_openqasm(PATH, SOURCE), seed=0)
+    assert profiling.counters["prims"] == PRIMS
+    assert 1 <= profiling.counters["fused_ops"] < profiling.counters["prims"]
+
+
+def test_no_sync_on_the_cpu():
+    _run()
+    assert profiling.counters.get("syncs", 0) == 0
+    a = np.arange(4, dtype=np.complex64)
+    t = apply.to_device(a, torch.device("cpu"))
+    assert t.data_ptr() == a.ctypes.data and apply.to_host(t) is not None
+    assert "syncs" not in profiling.counters
+
+
+def test_a_copy_off_the_cpu_counts_one_sync_in_its_span():
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t = apply.to_device(np.ones(3, dtype=np.complex64), "meta")
+    assert t.device.type == "meta" and tuple(t.shape) == (3,)
+    assert profiling.counters == {"syncs": 1}
+    assert [name for name, _, _ in _spans(prof)] == ["qubism.sync"]
+
+
+def test_nothing_is_entered_without_a_profiler_or_verbose(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    assert not profiling.profiler_on()
+    assert profiling.span("qubism.program") is profiling.span("qubism.fuse")
+    assert "Done." in _run()
+    assert profiling.span_s == {}
+
+
+def test_reset_launches_clears_the_counters():
+    _run()
+    assert profiling.counters["prims"] > 0
+    kernels.reset_launches()
+    assert profiling.counters == {} and all(v == 0 for v in kernels.launches.values())
+
+
+def test_verbose_prints_one_line_a_program(monkeypatch, capsys):
+    monkeypatch.setattr(profiling, "VERBOSE", True)
+    _run()
+    _run(shots=None)
+    lines = [ln for ln in capsys.readouterr().err.splitlines() if "program: host ms" in ln]
+    assert len(lines) == 2
+    for name in ("qubism.program", *PARENT):
+        assert f"{name} " in lines[0]
+    assert "qubism.sample" not in lines[1]
+    ops = profiling.counters["fused_ops"] // 2
+    assert lines[0].endswith(f"syncs 0, prims {PRIMS}, fused_ops {ops}")
+    assert profiling.span_s == {}
+
+
+def test_verbose_spans_also_reach_a_running_profiler(monkeypatch):
+    monkeypatch.setattr(profiling, "VERBOSE", True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _run()
+    assert {name for name, _, _ in _spans(prof)} == {"qubism.program", *PARENT}
