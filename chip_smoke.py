@@ -155,8 +155,12 @@ out=)`` and ``write_256x4`` beside ``fill_``.
 
 The butterfly kernel (K6) is held against its plain version at 2^20 and
 2^30 amplitudes in 2, 4 and 16 banks and timed at 2^28 beside one
-``torch.matmul``. The probe kernels are held against their plain
-versions like the others (copy and write exactly; the read probe's sum
+``torch.matmul``. The permute kernel (a run of qubit swaps in one pass) is
+held against its plain version at n = 20 and 30 on the full bit reversal
+and a random involution (equal states), and timed at n = 28 and 30 beside
+its plain version, the gate passes that greedy fusion makes of the same
+swaps, and ``copy_`` (``time n=.. permute`` lines). The probe kernels
+are held against their plain versions like the others (copy and write exactly; the read probe's sum
 within 1e-5 of the sum of magnitudes; copy, read, the phase in place and
 into a second buffer, and write also on states of 2, 8 and 512
 amplitudes, smaller than a tile, and with a tile of 96 x 2 float4s; three
@@ -288,6 +292,8 @@ KERNELS = {
     "stage": ("qubism_torch/csrc/stage.cu",
               "qubism_tpu/ops/kernels.py:256 (stage 1-4; stage_block_prepare :1041)"),
     "butterfly": ("qubism_torch/csrc/butterfly.cu", "qubism_tpu/ops/kernels.py:944"),
+    "permute": ("qubism_torch/csrc/permute.cu",
+                "none: the JAX package's swaps are gate passes (ops/fusion.py)"),
     "probe_stream": ("qubism_torch/csrc/probe_stream.cu",
                      "experiments/bw_probe.py:50, :157, :220, :573 (P1, P3, P5, P11)"),
     "probe_copy": ("qubism_torch/csrc/probe_stream.cu", "experiments/bw_probe.py:81 (P2)"),
@@ -877,6 +883,110 @@ def phase_kernels(report):
             + (f", kernel on prepared operands {prepared:.3f} ms" if prepared else ""))
     del s
     torch.cuda.empty_cache()
+
+
+def swap_gate_blocks(pairs, n):
+    """The dense blocks greedy fusion makes of these swaps without the
+    permutation pass: each two consecutive swaps one 4-qubit block, a last
+    odd one a 2-qubit block (QFT-30's 15 swaps: 7 + 1 passes of the gate
+    kernel), as (u, targets) for ``kernels.gate``."""
+    import numpy as np
+
+    from qubism_torch.core.gates import Prim
+    from qubism_torch.ops import fusion as F
+
+    swap = np.eye(4, dtype=np.complex128)[[0, 2, 1, 3]]
+    blocks = []
+    for i in range(0, len(pairs), 2):
+        (op,) = F.fuse([Prim(swap, p) for p in pairs[i:i + 2]], n)
+        check(isinstance(op, F.DenseOp), f"swaps {pairs[i:i + 2]} fused to {op}")
+        blocks.append((op.u, op.targets))
+    return blocks
+
+
+def phase_permute(report):
+    """The permute kernel against its plain version at n = N_CHECK and
+    N_WIDE (the full bit reversal and a random involution; a permutation
+    moves amplitudes, so the two are equal), then timed at n = N_TIME and
+    N_BIG beside its plain version, the gate passes it replaces
+    (:func:`swap_gate_blocks`), ``copy_`` into a second state (one read and
+    one write of every amplitude, the pass's yardstick). No single PyTorch
+    call permutes 30 axes on the card (a copy takes at most 25 that do not
+    merge), so the row has no library time."""
+    import numpy as np
+    import torch
+
+    from qubism_torch.ops import kernels as K
+    from qubism_torch.ops import probes as P
+
+    rng = np.random.default_rng(2027)
+
+    def involution(n):
+        qs = rng.permutation(n)
+        pairs = [(int(qs[2 * i]), int(qs[2 * i + 1]))
+                 for i in range(int(rng.integers(1, n // 2 + 1)))]
+        perm = list(range(n))
+        for a, b in pairs:
+            perm[a], perm[b] = b, a
+        return tuple(perm), pairs
+
+    def cases(n):
+        rev = [(q, n - 1 - q) for q in range(n // 2)]
+        return [("bit reversal", tuple(range(n - 1, -1, -1)), rev),
+                ("random involution",) + involution(n)]
+
+    for n in (N_CHECK, N_WIDE):
+        for label, perm, _ in cases(n):
+            s = rand_state(n, 700 + n)
+            ref = s.clone()
+            K.permute_plain(ref, perm, n)
+            K.permute(s, perm, n)
+            sync()
+            same = bool(torch.equal(s, ref))
+            log(f"kernel permute n={n} {label}: equal to the plain version {same}")
+            check(same, f"permute differs from its plain version at n={n} {label}")
+            del s, ref
+            torch.cuda.empty_cache()
+    if DEV != "cuda":
+        return
+    for n in (N_TIME, N_BIG):
+        gb = 16 * (1 << n) / 1e9
+        bound_ms, bound_by = P.bound(16 * (1 << n), 0)
+        s = rand_state(n, 7)
+        dst = torch.empty_like(s)
+        for label, perm, pairs in cases(n):
+            plan = K.permute_prepare(perm, n)
+            blocks = swap_gate_blocks(pairs, n)
+
+            def kern(st):
+                K.permute(st, plan, n)
+
+            def plain(st):
+                K.permute_plain(st, plan, n)
+
+            def gates(st):
+                for u, t in blocks:
+                    K.gate(st, u, t, n)
+
+            def copy(st):
+                dst.copy_(st)
+
+            # one window, in turns: plain, kernel, gates, copy, copy, gates,
+            # kernel, plain
+            order = [plain, kern, gates, copy, copy, gates, kern, plain]
+            ms = [time_ms(fn, s) for fn in order]
+            pms, kms, gms, cms = ((ms[i] + ms[-1 - i]) / 2 for i in range(4))
+            if n == N_TIME and label == "bit reversal":
+                report["permute"].update(ms=kms, plain_ms=pms, bound_ms=bound_ms,
+                                         bound_by=bound_by)
+            log(f"time n={n} permute {label}: kernel {kms:.4f} ms ({gb / kms * 1e3:.1f} GB/s; "
+                f"{ms[1]:.4f}, {ms[6]:.4f}), plain {pms:.3f} ms, "
+                f"{len(blocks)} gate passes {gms:.3f} ms ({ms[2]:.3f}, {ms[5]:.3f}), "
+                f"copy_ {cms:.4f} ms ({ms[3]:.4f}, {ms[4]:.4f}), "
+                f"bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{bound_ms / kms:.1%} of it; copy_ {bound_ms / cms:.1%})")
+        del s, dst
+        torch.cuda.empty_cache()
 
 
 def phase_butterfly(report):
@@ -3488,6 +3598,7 @@ def main() -> int:
     phase_kernels(report)
     phase_device_operands(report)
     phase_butterfly(report)
+    phase_permute(report)
     phase_probe_kernels(report)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 

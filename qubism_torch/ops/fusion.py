@@ -23,11 +23,21 @@ over the state by one kernel of :mod:`.kernels`:
 * **1q layers**: runs of 4 or more disjoint dense 1q gates on qubits above
   the lane block are cut into :class:`Layer1QOp` chunks of at most
   ``_LAYER1Q_MAX`` gates (the ``layer1q`` kernel).
+* **Bit permutations**: a dense block whose matrix only moves qubit values
+  between its targets (exactly one entry, exactly 1, in each column, as a
+  permutation of the targets' bits sends it; a swap, whether a SWAP prim or
+  qelib1's three cx) is a bit permutation. Runs of two or more consecutive
+  ones merge into one :class:`PermuteOp` over all n qubits, of any width,
+  while their composition stays an involution (the ``permute`` kernel, one
+  pass in place). A lone one stays a dense block, and a run that composes
+  to the identity is dropped.
 
 These are the fusion semantics of qubism_tpu/ops/fusion.py on its kernel
-path (``max_block <= 4``, ``mixed_lane=True``), at every n; what that
-module sized for the TPU (its pass-cost model, axis-slot caps, virtual
-shards, chunked jits and operand caches) is not carried over.
+path (``max_block <= 4``, ``mixed_lane=True``), at every n, but for the
+bit permutations, which that module leaves as greedy dense blocks of up to
+4 qubits (the QFT's 15 final swaps at n = 30 are 8 passes there, one
+here); what that module sized for the TPU (its pass-cost model, axis-slot
+caps, virtual shards, chunked jits and operand caches) is not carried over.
 ``keep_separate_below`` and :func:`split_op_virtual`, which the JAX package
 shares between its virtual shards and the mesh's banks, serve the mesh's
 banks here (:mod:`qubism_torch.parallel.sharded`).
@@ -101,6 +111,18 @@ class Layer1QOp:
     @property
     def targets(self):
         return tuple(q for _, q in self.gates)
+
+
+@dataclass(frozen=True)
+class PermuteOp:
+    """A run of bit permutations applied in ONE pass: the value of qubit q
+    moves to qubit perm[q], an involution over all n qubits."""
+
+    perm: tuple[int, ...]
+
+    @property
+    def targets(self):
+        return tuple(q for q, p in enumerate(self.perm) if p != q)
 
 
 @dataclass(frozen=True)
@@ -218,11 +240,13 @@ def _layer1q_prepass(items, n: int, keep_separate_below: int = 0):
 def fuse(prims, n: int, max_block: int = DEFAULT_MAX_BLOCK,
          stage_group: int | None = None, keep_separate_below: int = 0) -> list:
     """Greedy fusion: prims -> [StageBlockOp | Layer1QOp | DenseOp |
-    DiagLayer]. ``max_block`` is clamped to 4, the widest dense block the
-    gate kernel takes; ``stage_group`` (1..4) caps the stages per block.
+    DiagLayer | PermuteOp]. ``max_block`` is clamped to 4, the widest dense
+    block the gate kernel takes; ``stage_group`` (1..4) caps the stages per
+    block.
     A prim that touches a qubit below ``keep_separate_below`` (the bank bits
     of the mesh path, which :func:`split_op_virtual` splits off) merges with
-    no other prim, though diagonals still join a diagonal layer."""
+    no other prim, though diagonals still join a diagonal layer, and joins
+    no PermuteOp."""
     with profiling.span("qubism.fuse"):
         return _fuse(prims, n, max_block, stage_group, keep_separate_below)
 
@@ -298,7 +322,74 @@ def _fuse(prims, n: int, max_block: int, stage_group: int | None,
             grp.append(b)
         grouped.append(StageBlockOp(tuple((s.u, s.q, s.factors) for s in grp)))
         i += len(grp)
-    return grouped
+    return _permute_runs(grouped, n, keep_separate_below)
+
+
+def _qubit_map(op, n: int, keep_separate_below: int):
+    """The qubit map of a dense block on qubits at or above
+    ``keep_separate_below`` that only moves qubit values between its
+    targets (the value of qubit q moves to qubit map[q]), else None."""
+    if not isinstance(op, DenseOp) or op.targets[0] < keep_separate_below:
+        return None
+    u, k = op.u, len(op.targets)
+    dim = 1 << k
+    if np.count_nonzero(u) != dim:
+        return None
+    cols = np.arange(dim)
+    rows = np.argmax(u != 0, axis=0)  # each column's first nonzero entry
+    if not np.all(u[rows, cols] == 1):
+        return None
+    # target j is bit k-1-j of u's index; where does it go?
+    dest = []
+    for j in range(k):
+        r = int(rows[1 << (k - 1 - j)])
+        if r & (r - 1) or r == 0:
+            return None
+        dest.append(k - r.bit_length())
+    if sorted(dest) != list(range(k)):
+        return None
+    image = np.zeros(dim, dtype=np.int64)
+    for j, m in enumerate(dest):
+        image |= ((cols >> (k - 1 - j)) & 1) << (k - 1 - m)
+    if not np.array_equal(rows, image):
+        return None
+    qmap = list(range(n))
+    for j, m in enumerate(dest):
+        qmap[op.targets[j]] = op.targets[m]
+    return tuple(qmap)
+
+
+def _permute_runs(ops: list, n: int, keep_separate_below: int) -> list:
+    """Merge runs of two or more consecutive bit-permutation blocks into
+    one PermuteOp. A run ends before the block whose composition with it is
+    not an involution (the kernel's pairing needs one); that block starts
+    the next run. A lone block stays as it is; a run that composes to the
+    identity is dropped."""
+    out: list = []
+    run: list = []
+    comp: tuple = ()
+
+    def close():
+        if len(run) == 1:
+            out.append(run[0])
+        elif run and any(p != q for q, p in enumerate(comp)):
+            out.append(PermuteOp(comp))
+        run.clear()
+
+    for op in ops:
+        qmap = _qubit_map(op, n, keep_separate_below)
+        if qmap is None:
+            close()
+            out.append(op)
+            continue
+        nxt = tuple(qmap[c] for c in comp) if run else qmap  # the block after the run
+        if run and any(nxt[p] != q for q, p in enumerate(nxt)):
+            close()
+            nxt = qmap
+        run.append(op)
+        comp = nxt
+    close()
+    return out
 
 
 def split_op_virtual(op, v: int):
@@ -317,6 +408,11 @@ def split_op_virtual(op, v: int):
     if isinstance(op, Layer1QOp):
         shifted = Layer1QOp(tuple((u, q - v) for u, q in op.gates))
         return ("per_shard", [shifted] * (1 << v))
+    if isinstance(op, PermuteOp):
+        # fuse(keep_separate_below=v) moves no bank bit
+        if any(op.perm[q] != q for q in range(v)):
+            raise ValueError(f"a permutation of bank bits {op.targets}: no per-bank op")
+        return ("per_shard", [PermuteOp(tuple(p - v for p in op.perm[v:]))] * (1 << v))
     if isinstance(op, DiagLayer):
         per = []
         for s in range(1 << v):
@@ -346,6 +442,8 @@ def plan(op, n: int, device="cpu"):
             return "diag", (kernels.diag_prepare(op.factors, n, device),)
         if isinstance(op, Layer1QOp):
             return "layer1q", (op.gates,)
+        if isinstance(op, PermuteOp):
+            return "permute", (kernels.permute_prepare(op.perm, n),)
         b = max(n - _apply._COL, 0)
         if all(t >= b for t in op.targets):
             return "lane", (kernels.lane_prepare(

@@ -1,10 +1,10 @@
-"""The six state-vector kernels of the engine.
+"""The seven state-vector kernels of the engine.
 
 Each kernel has three parts here:
 
 * a **wrapper** (``gate``, ``diag``, ``lane``, ``layer1q``, ``stage_block``,
-  ``shard_butterfly``) that updates a state tensor in place. On a CUDA
-  tensor it launches the hand-written Hopper kernel from
+  ``shard_butterfly``, ``permute``) that updates a state tensor in place.
+  On a CUDA tensor it launches the hand-written Hopper kernel from
   ``qubism_torch/csrc`` (built by :mod:`.build`) or raises; on a CPU tensor
   it runs the plain version.
   Nothing else selects between the two: no fallback, no size threshold.
@@ -22,8 +22,10 @@ stage kernels read from device memory can be prepared once
 (:func:`diag_prepare`, :func:`lane_prepare`, :func:`stage_block_prepare`),
 so that a compiled circuit launches kernels without a host-to-device copy;
 the diag and lane wrappers also take raw host operands and upload them.
-K1, K4 and K3 also have a device-operand mode (:func:`gate_dev`,
-:func:`layer1q_dev`, :func:`lane_dev`): the matrix is a complex64 tensor on
+The permute kernel's tile layout is made on the host
+(:func:`permute_prepare`) and read from its parameters. K1, K4 and K3 also
+have a device-operand mode (:func:`gate_dev`, :func:`layer1q_dev`,
+:func:`lane_dev`): the matrix is a complex64 tensor on
 the state's device, chosen there (a trajectory's realized operand, an MCWF
 branch), so a run of launches needs no host copy at all; they count their
 launches under the same names and their plain versions are the same.
@@ -42,7 +44,8 @@ from ..utils import profiling
 from .apply import _COL, as_operand, canonical_device, target_view, to_device
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-launches = {"gate": 0, "diag": 0, "lane": 0, "layer1q": 0, "stage": 0, "butterfly": 0}
+launches = {"gate": 0, "diag": 0, "lane": 0, "layer1q": 0, "stage": 0, "butterfly": 0,
+            "permute": 0}
 
 #: widest diagonal factor held as a table (2^7 entries: the widest factor
 #: fusion emits, a pure-lane union). Wider factors are split exactly into
@@ -823,6 +826,113 @@ def shard_butterfly(banks, plan: ButterflyPlan, m: int):
     return banks
 
 
+# ---------------------------------------------------------------------------
+# permute: a relabelling of the index bits (a run of qubit swaps)
+# ---------------------------------------------------------------------------
+
+#: csrc/permute.cu's tile: rows of 2^6 contiguous amplitudes, at most 2^12
+#: amplitudes a tile, at most 16 swapped pairs of bits outside the tile
+_PERMUTE_COL_BITS = 6
+_PERMUTE_TILE_BITS = 12
+_PERMUTE_MAX_PAIRS = 16
+
+
+@dataclass(frozen=True)
+class PermutePlan:
+    """The tiles of one permute pass (csrc/permute.cu), laid out on the host.
+
+    ``perm[q]`` is the qubit that qubit q's value moves to; ``sigma`` is the
+    same map on bit positions (qubit q is bit n-1-q). ``tile`` holds the
+    tile's bit positions, ascending: the low ``col_bits``, their images, and
+    bits that sigma fixes or swaps among themselves; ``rows`` those above
+    the low ``col_bits``. A destination's column bit j (row bit j) has its
+    source at shared-memory offset ``wcol[j]`` (``wrow[j]``) within a tile
+    buffer of rows of 2^col_bits + 1 amplitudes. ``pairs`` are the swapped
+    bits outside the tile, (p, sigma[p]) with p < sigma[p]. ``packed`` is
+    all of it as the kernel's parameters (int32)."""
+
+    perm: tuple
+    sigma: tuple
+    col_bits: int
+    tile: tuple
+    rows: tuple
+    wcol: tuple
+    wrow: tuple
+    pairs: tuple
+    packed: np.ndarray
+
+
+def permute_prepare(perm, n: int) -> PermutePlan:
+    """The tile layout of the permute kernel for the qubit map ``perm``
+    (length n, an involution: qubit q's value moves to qubit perm[q])."""
+    perm = tuple(int(p) for p in perm)
+    if sorted(perm) != list(range(n)) or any(perm[p] != q for q, p in enumerate(perm)):
+        raise ValueError(f"permute: {perm} is not an involution of the {n} qubits")
+    sigma = tuple(n - 1 - perm[n - 1 - p] for p in range(n))
+    cols = min(_PERMUTE_COL_BITS, n)
+    tile = set(range(cols)) | {sigma[p] for p in range(cols)}
+    for p in range(cols, n):
+        if p in tile:
+            continue
+        if sigma[p] == p and len(tile) < _PERMUTE_TILE_BITS:
+            tile.add(p)
+        elif sigma[p] != p and len(tile) + 2 <= _PERMUTE_TILE_BITS:
+            tile |= {p, sigma[p]}
+    tile = tuple(sorted(tile))
+    rows = tile[cols:]
+    stride = (1 << cols) + 1
+
+    def offset(p):  # the shared-memory offset of tile bit p within a tile
+        return 1 << p if p < cols else stride << rows.index(p)
+
+    wcol = tuple(offset(sigma[j]) for j in range(cols))
+    wrow = tuple(offset(sigma[p]) for p in rows)
+    pairs = tuple((p, sigma[p]) for p in range(n) if p not in tile and p < sigma[p])
+    if len(pairs) > _PERMUTE_MAX_PAIRS:
+        raise ValueError(f"permute: {len(pairs)} swapped pairs outside the tile "
+                         f"(at most {_PERMUTE_MAX_PAIRS})")
+    row_max = _PERMUTE_TILE_BITS - _PERMUTE_COL_BITS
+
+    def pad(xs, size):
+        return list(xs) + [0] * (size - len(xs))
+
+    packed = np.array([cols, len(rows), len(tile), len(pairs)]
+                      + pad(tile, _PERMUTE_TILE_BITS) + pad(rows, row_max)
+                      + pad(wcol, _PERMUTE_COL_BITS) + pad(wrow, row_max)
+                      + pad([a for a, _ in pairs], _PERMUTE_MAX_PAIRS)
+                      + pad([b for _, b in pairs], _PERMUTE_MAX_PAIRS), dtype=np.int32)
+    return PermutePlan(perm, sigma, cols, tile, rows, wcol, wrow, pairs, packed)
+
+
+def permute_plain(state: torch.Tensor, perm, n: int) -> torch.Tensor:
+    """Qubit q's value moves to qubit perm[q] (``perm`` an involution or a
+    :class:`PermutePlan`): each pair of qubits it exchanges is swapped in
+    turn, as two axes of a view of at most five (a CUDA copy takes at most
+    25 axes that do not merge, fewer than a reversed 30-qubit state has)."""
+    if not isinstance(perm, PermutePlan):
+        perm = permute_prepare(perm, n)
+    for q, p in enumerate(perm.perm):
+        if q < p:
+            v = state.view(1 << q, 2, 1 << (p - q - 1), 2, 1 << (n - 1 - p))
+            v.copy_(v.permute(0, 3, 2, 1, 4).contiguous())
+    return state
+
+
+def permute(state: torch.Tensor, perm, n: int) -> torch.Tensor:
+    """Qubit q's value moves to qubit perm[q], for an involution ``perm``
+    over all n qubits (a qubit map or a :class:`PermutePlan`), in one pass
+    in place."""
+    plan = perm if isinstance(perm, PermutePlan) else permute_prepare(perm, n)
+    if len(plan.perm) != n:
+        raise ValueError(f"permute: a map of {len(plan.perm)} qubits on a {n}-qubit state")
+    _check_state(state, n)
+    if state.device.type == "cpu":
+        return permute_plain(state, plan, n)
+    _check_aligned("permute", state)
+    return _launch(state, "permute", lambda lib, d, s: lib.qk_permute(
+        _ptr(state), n, _host(plan.packed), d, s))
+
+
 #: kernel name -> (wrapper, plain version); both take (state, *operands, n),
 #: except the butterfly's, which take (banks, plan, m)
 KERNEL_FNS = {
@@ -832,4 +942,5 @@ KERNEL_FNS = {
     "layer1q": (layer1q, layer1q_plain),
     "stage": (stage_block, stage_block_plain),
     "butterfly": (shard_butterfly, shard_butterfly_plain),
+    "permute": (permute, permute_plain),
 }
