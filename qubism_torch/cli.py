@@ -67,8 +67,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "the matrix-product-state engine (bounded-entanglement "
                         "circuits at 100+ qubits, see --chi; with --noise, MPS "
                         "trajectories) or the exact density-matrix engine "
-                        "(open-system: combine with --noise; 4^n amplitudes, "
-                        "n <= 14 on one device, shard past that with "
+                        "(open-system: combine with --noise; 4^n amplitudes "
+                        "in one buffer: n <= 14 on the CPU, on a CUDA card "
+                        "the widest n whose 8*4^n bytes fill half of its "
+                        "memory, 16 on an 80 GB H100; shard past that with "
                         "--mesh)")
     p.add_argument("--chi", type=int, default=32, metavar="X",
                    help="MPS bond dimension cap (--backend mps): simulation "
@@ -132,8 +134,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "(file mode resolves relative to the includer)")
     p.add_argument("--verbose", action="store_true",
                    help="one stderr line a program: host ms by span (parse, "
-                        "interpreter, fusion, syncs, sampling) and the counts "
-                        "of syncs, prims and fused ops")
+                        "interpreter, fusion, syncs, sampling, the density "
+                        "backend's passes and readout) and the counts of "
+                        "syncs, prims, fused ops and passes over a density "
+                        "matrix")
     return p
 
 

@@ -19,10 +19,19 @@ Both packages keep the row index in the top n qubits, so
 ``ops.apply.state_from_planes`` / ``planes_from_state`` carry a rho across
 unchanged.
 
-Memory is 16 * 4^n bytes: 2 GiB at n = 14, the width
-:class:`~qubism_torch.run.noisy.DensityProgram` allows on one device (as the
-JAX package does); an 80 GB H100 holds n = 15 (8 GiB) on one card through
-the mesh path's shards (parallel/density.py).
+Memory is 8 * 4^n bytes of complex64: 2 GiB at n = 14, the widest rho
+:class:`~qubism_torch.run.noisy.DensityProgram` keeps in one buffer on the
+CPU (as the JAX package does on one device). On a CUDA card the cap follows
+the card (``run.noisy.single_buffer_cap``): an 80 GB H100 holds n = 15 (8
+GiB) and n = 16 (32 GiB) in one buffer. The mesh path's shards
+(parallel/density.py) lift the cap; one card's shards exist only on the CPU.
+
+The engine's work is traced as the spans ``qubism.density.unitary`` (the
+row and column passes of :meth:`DensityMatrix.apply`),
+``qubism.density.channel`` (a channel's superoperator, built and applied)
+and ``qubism.density.readout`` (the diagonal, the trace, shots and
+mid-circuit measurement), and counted as ``rho_unitary_passes`` and
+``rho_channel_passes``, one per pass over rho (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import torch
 from ..config import config
 from ..ops import apply as A
 from ..ops import measure as _measure
+from ..utils import profiling
 from .gates import Prim
 
 #: amplitudes per partial norm of :meth:`DensityMatrix.purity` (each partial
@@ -181,16 +191,18 @@ class DensityMatrix:
         if isinstance(prims, Prim):
             prims = [prims]
         n2 = 2 * self.n
-        for p in prims:
-            row = tuple(p.targets)
-            col = tuple(t + self.n for t in p.targets)
-            u = np.asarray(p.u, dtype=np.complex128)
-            if p.diag:
-                A.apply_diag(self.state, u, row, n2)
-                A.apply_diag(self.state, np.conj(u), col, n2)
-            else:
-                A.apply_gate(self.state, u, row, n2)
-                A.apply_gate(self.state, np.conj(u), col, n2)
+        with profiling.span("qubism.density.unitary"):
+            for p in prims:
+                row = tuple(p.targets)
+                col = tuple(t + self.n for t in p.targets)
+                u = np.asarray(p.u, dtype=np.complex128)
+                if p.diag:
+                    A.apply_diag(self.state, u, row, n2)
+                    A.apply_diag(self.state, np.conj(u), col, n2)
+                else:
+                    A.apply_gate(self.state, u, row, n2)
+                    A.apply_gate(self.state, np.conj(u), col, n2)
+                profiling.count("rho_unitary_passes", 2)
         return self
 
     def _channel_targets(self, targets):
@@ -203,8 +215,10 @@ class DensityMatrix:
         """rho -> sum_i K_i rho K_i^dag for Kraus operators on ``targets``
         (a qubit index or tuple; each K_i a (2^k, 2^k) matrix), as one pass
         of the channel's :func:`superoperator`."""
-        row, col = self._channel_targets(targets)
-        A.apply_gate(self.state, superoperator(kraus), row + col, 2 * self.n)
+        with profiling.span("qubism.density.channel"):
+            row, col = self._channel_targets(targets)
+            A.apply_gate(self.state, superoperator(kraus), row + col, 2 * self.n)
+            profiling.count("rho_channel_passes")
         return self
 
     def apply_channel_plain(self, kraus, targets) -> "DensityMatrix":
@@ -230,10 +244,12 @@ class DensityMatrix:
     def probs(self) -> np.ndarray:
         """(2^n,) computational-basis probabilities (the diagonal), float64
         on the host."""
-        return self._diagonal().real.double().cpu().numpy()
+        with profiling.span("qubism.density.readout"):
+            return self._diagonal().real.double().cpu().numpy()
 
     def trace(self) -> float:
-        return float(self._diagonal().real.sum(dtype=torch.float64))
+        with profiling.span("qubism.density.readout"):
+            return float(self._diagonal().real.sum(dtype=torch.float64))
 
     def purity(self) -> float:
         """Tr(rho^2), 1.0 iff pure (the vectorized norm squared)."""
@@ -257,7 +273,8 @@ class DensityMatrix:
     def sample(self, shots: int, gen: torch.Generator | None = None) -> dict[str, int]:
         """Non-destructive computational-basis shot sampling from the
         diagonal: {big-endian bitstring: count}."""
-        return sample_diagonal(self.probs(), self.n, shots, gen)
+        with profiling.span("qubism.density.readout"):
+            return sample_diagonal(self.probs(), self.n, shots, gen)
 
     def prob_one(self, q: int) -> float:
         """Born probability that measuring qubit q yields 1."""
@@ -284,6 +301,7 @@ class DensityMatrix:
                       uniform: float | None = None) -> int:
         """Sample qubit q (one uniform of ``gen``, or ``uniform``), project
         rho, renormalize by the trace. Returns the outcome."""
-        outcome = born_outcome(self.prob_one(q), gen, uniform)
-        self._project(q, outcome)
+        with profiling.span("qubism.density.readout"):
+            outcome = born_outcome(self.prob_one(q), gen, uniform)
+            self._project(q, outcome)
         return outcome

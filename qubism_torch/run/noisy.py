@@ -32,8 +32,9 @@ from ..models.trajectories import _unitary_mix
 from ..ops import apply as A
 from ..ops import measure as M
 from ..ops.apply import _sort_targets
+from ..utils import profiling
 
-__all__ = ["TrajectoryProgram", "DensityProgram", "parse_noise_spec",
+__all__ = ["TrajectoryProgram", "DensityProgram", "single_buffer_cap", "parse_noise_spec",
            "NOISE_CHANNELS", "split_channel_target", "noise_spec_targets",
            "resolve_noise_targets", "resolve_traj_mesh"]
 
@@ -613,6 +614,22 @@ class TrajectoryProgram:
         return collections.Counter(rows)
 
 
+def single_buffer_cap(dev: torch.device) -> int:
+    """The widest n whose rho :class:`DensityProgram` keeps in one buffer
+    on ``dev``. On the CPU it is :attr:`DensityProgram.MAX_N`, the JAX
+    package's 14. On a CUDA card it is the largest n whose 8 * 4^n bytes
+    of complex64 fill at most half of the card's memory, which leaves the
+    other half for the work beside rho: 16 on an 80 GB H100 (32 GiB), 15 on
+    a 24 GB card (8 GiB)."""
+    if dev.type != "cuda":
+        return DensityProgram.MAX_N
+    total = torch.cuda.get_device_properties(dev).total_memory
+    n = 0
+    while 8 * 4 ** (n + 1) <= total // 2:
+        n += 1
+    return n
+
+
 class DensityProgram:
     """Exact open-system execution of a QASM program: the state is a
     vectorized density matrix on the dense engine (a 2n-qubit tensor,
@@ -625,7 +642,9 @@ class DensityProgram:
     diagonal.
     """
 
-    #: 2*n qubits ride the dense engine: the widest rho in one buffer.
+    #: 2*n qubits ride the dense engine: the widest rho in one buffer on the
+    #: CPU, the JAX package's cap (its TPU's 2^29-element buffers). A CUDA
+    #: card holds more: :func:`single_buffer_cap`.
     MAX_N = 14
 
     def __init__(self, ast, noise=None, mesh=None):
@@ -636,11 +655,19 @@ class DensityProgram:
         #: shard count (or device sequence) for the mesh-sharded rho
         #: (parallel/density.py), which lifts the single-buffer cap
         self.mesh = mesh
-        if mesh is None and self.n > self.MAX_N:
-            raise ValueError(
-                f"--backend density stores 4^n amplitudes; n={self.n} > "
-                f"{self.MAX_N}. Shard over a mesh (--mesh D) or use "
-                f"--noise with --trajectories (sampled) instead.")
+        if mesh is None:
+            dev = A.device()
+            cap = single_buffer_cap(dev)
+            if self.n > cap:
+                # on the CPU the JAX package's words; on a card, the card's
+                which = "" if dev.type != "cuda" else (
+                    f", the widest rho in half of the "
+                    f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.1f} GB "
+                    f"of {torch.cuda.get_device_name(dev)}")
+                raise ValueError(
+                    f"--backend density stores 4^n amplitudes; n={self.n} > "
+                    f"{cap}{which}. Shard over a mesh (--mesh D) or use "
+                    f"--noise with --trajectories (sampled) instead.")
         if isinstance(noise, str):
             noise, ro = split_readout_spec(noise)
             if ro is not None:
@@ -655,7 +682,11 @@ class DensityProgram:
         """Execute from |0...0><0...0|. Returns (rho, cregs dict); rho is
         None for a program with no qubits. Each measured qubit takes one
         uniform from a CPU generator seeded with ``seed``, or the next of
-        ``uniforms``."""
+        ``uniforms``. The run is the span ``qubism.density``."""
+        with profiling.span("qubism.density"):
+            return self._run(seed, dump_writer, uniforms)
+
+    def _run(self, seed, dump_writer, uniforms):
         from ..core.density import DensityMatrix
         from .compiler import EvCond, EvDump, EvGates, EvMeasure, EvReset
 

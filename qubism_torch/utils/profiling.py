@@ -7,7 +7,10 @@ count against the card's memory rate), and ``count_ops``.
 A span marks where the port's host works: ``qubism.program`` (one file),
 ``qubism.parse``, ``qubism.lex``, ``qubism.interp``, ``qubism.flush``,
 ``qubism.fuse``, ``qubism.plan``, ``qubism.sync`` (a copy between host and
-device) and ``qubism.sample``, each nested in its caller. Under a running
+device) and ``qubism.sample``; on the exact density backend
+``qubism.density`` (a run) around ``qubism.density.unitary``,
+``qubism.density.channel`` and ``qubism.density.readout``; each nested in
+its caller. Under a running
 ``torch.profiler`` a span is a ``record_function`` on the profiler's clock,
 the clock of the device's work in the same trace; under ``--verbose`` its
 host time is summed by name; otherwise it is a shared no-op context.
@@ -36,8 +39,14 @@ VERBOSE = False
 #: events since the last ``ops.kernels.reset_launches()``: ``syncs`` (copies
 #: across the host/device boundary, ``ops.apply.to_device`` / ``to_host``),
 #: ``prims`` and ``fused_ops`` (what each interpreter flush hands to
-#: ``ops.fusion.fuse`` and gets back)
+#: ``ops.fusion.fuse`` and gets back), ``rho_unitary_passes`` and
+#: ``rho_channel_passes`` (passes over a density matrix, ``core.density``)
 counters: dict[str, int] = {}
+
+#: the counters the --verbose line always reports, and those it reports
+#: where they rose in the program
+_REPORTED = ("syncs", "prims", "fused_ops")
+_REPORTED_IF_ANY = ("rho_unitary_passes", "rho_channel_passes")
 
 #: host seconds in each span name while VERBOSE, in the current program
 span_s: dict[str, float] = {}
@@ -87,7 +96,8 @@ def count(name: str, k: int = 1):
 def program():
     """The ``qubism.program`` span of one program. Under VERBOSE its end
     prints the --verbose line: the host ms of each span name in the program
-    and how far each reported counter rose over it."""
+    and how far each reported counter rose over it (the density passes
+    where there were any)."""
     since = dict(counters)
     try:
         with span("qubism.program"):
@@ -95,8 +105,10 @@ def program():
     finally:
         if VERBOSE:
             spans = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in span_s.items())
-            counts = ", ".join(f"{k} {counters.get(k, 0) - since.get(k, 0)}"
-                               for k in ("syncs", "prims", "fused_ops"))
+            rose = {k: counters.get(k, 0) - since.get(k, 0)
+                    for k in _REPORTED + _REPORTED_IF_ANY}
+            counts = ", ".join(f"{k} {v}" for k, v in rose.items()
+                               if k in _REPORTED or v)
             vlog(f"program: host ms {spans}; {counts}")
             span_s.clear()
 

@@ -442,8 +442,32 @@ def test_density_program_errors():
                     ("qreg q[2];", {"noise": "dep:0.1@r"}), ("qreg q[2];", {"noise": "zz:0.1"})):
         both_raise(lambda: TN.DensityProgram(t_parse("<t>", src), **kw),
                    lambda: JN.DensityProgram(j_parse("<t>", src), **kw))
+    # one buffer's cap follows the device: on the CPU it is the JAX package's
+    assert TN.single_buffer_cap(torch.device("cpu")) == TN.DensityProgram.MAX_N
     assert TN.DensityProgram.MAX_N == JN.DensityProgram.MAX_N == 14
     TN.DensityProgram(t_parse("<t>", "qreg q[16];"), mesh=8)  # validates, does not allocate
+
+
+@pytest.mark.parametrize("total, cap", [(24e9, 15), (80e9, 16), (85_520_809_984, 16),
+                                        (16e9, 14), (4e9, 13)])
+def test_single_buffer_cap_follows_the_card(monkeypatch, total, cap):
+    """On a CUDA card the widest rho in one buffer is the largest n whose
+    8 * 4^n bytes fill at most half of the card's memory (a stubbed card:
+    24 GB holds 15, an 80 GB H100 16); past it the error names the card."""
+    from types import SimpleNamespace
+
+    card = SimpleNamespace(total_memory=int(total), name="Stub GPU")
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: card)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev: card.name)
+    cuda = torch.device("cuda", 0)
+    n = TN.single_buffer_cap(cuda)
+    assert n == cap and 8 * 4 ** n <= total / 2 < 8 * 4 ** (n + 1)
+    which = f", the widest rho in half of the {total / 1e9:.1f} GB of Stub GPU"
+    monkeypatch.setattr(TN.A, "device", lambda: cuda)
+    TN.DensityProgram(t_parse("<t>", f"qreg q[{cap}];"))  # validates, does not allocate
+    with pytest.raises(ValueError) as e:
+        TN.DensityProgram(t_parse("<t>", f"qreg q[{cap + 1}];"))
+    assert f"n={cap + 1} > {cap}{which}. Shard over a mesh" in str(e.value)
 
 
 # -- the CLI ----------------------------------------------------------------------

@@ -1,10 +1,13 @@
 """The port's own spans and counters (``qubism_torch.utils.profiling``): the
 spans a file opens under ``torch.profiler`` and how they nest, the counters
 of a flush, the host/device copies (none on the CPU), nothing entered while
-neither a profiler nor ``--verbose`` is on, and the ``--verbose`` line."""
+neither a profiler nor ``--verbose`` is on, and the ``--verbose`` line; the
+exact density backend's spans and its counts of passes over rho on the
+benchmark's noisy random circuit at 2 x 3."""
 
 import io
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -20,6 +23,12 @@ from qubism_torch.ops import apply, fusion, kernels  # noqa: E402
 from qubism_torch.qasm.parser import parse_openqasm  # noqa: E402
 from qubism_torch.run.interpreter import run_program  # noqa: E402
 from qubism_torch.utils import profiling  # noqa: E402
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+from qbench.circuits import boixo, noisy_boixo  # noqa: E402
 
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 PATH = os.path.join(EXAMPLES, "traced.qasm")  # includes resolve to examples/qelib1.inc
@@ -173,3 +182,80 @@ def test_verbose_spans_also_reach_a_running_profiler(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _run()
     assert {name for name, _, _ in _spans(prof)} == {"qubism.program", *PARENT}
+
+
+#: the noisy random circuit of the benchmark's density cell at 2 x 3
+NOISY = {"lattice": [2, 3], "qubits": 6, "num_qubits": 12, "cz_depth": 8,
+         "noise": "depolarizing:0.0016,dep2:0.0062"}
+#: each span of a density run and the span it runs in; the shots' readout
+#: runs after the run, in the program
+DENSITY_PARENT = {
+    "qubism.parse": "qubism.program",
+    "qubism.lex": "qubism.parse",
+    "qubism.density": "qubism.program",
+    "qubism.density.unitary": "qubism.density",
+    "qubism.density.channel": "qubism.density",
+    "qubism.density.readout": "qubism.program",
+}
+
+
+def _run_density(source, shots=64):
+    out = io.StringIO()
+    path = os.path.join(ROOT, "qbench", "program.qasm")  # includes qbench/qelib1.inc
+    assert eval_file(path, source=source, seed=3, shots=shots, out=out, backend="density",
+                     noise=NOISY["noise"]) == 0, out.getvalue()
+    return out.getvalue()
+
+
+def test_density_spans_nest_and_count_every_pass_over_rho():
+    p = noisy_boixo.draw(NOISY, 7)
+    names = [g for ops in boixo.moments(NOISY, p) for g, *_ in ops]
+    cz, single = names.count("cz"), len(names) - names.count("cz")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert "Done." in _run_density(noisy_boixo.text(NOISY, p))
+    spans = _spans(prof)
+    assert {name for name, _, _ in spans} == {"qubism.program", *DENSITY_PARENT}
+    outer = [sp for sp in spans if sp[0] == "qubism.density.readout"
+             and _parent(sp, spans) != "qubism.density.readout"]
+    assert len(outer) == 1  # the shots read the diagonal once, after the run
+    for sp in spans:
+        if sp[0] != "qubism.program" and sp not in outer and sp[0] == "qubism.density.readout":
+            assert _parent(sp, spans) == "qubism.density.readout"
+        elif sp[0] != "qubism.program":
+            assert _parent(sp, spans) == DENSITY_PARENT[sp[0]], sp[0]
+    # a noisy U: its row and column passes and its channel; a cz (h, cx, h):
+    # 3 U's row and column passes, a channel on each qubit of each, and dep2
+    c = profiling.counters
+    assert c["rho_unitary_passes"] == 2 * (single + 3 * cz)
+    assert c["rho_channel_passes"] == single + 5 * cz
+    assert c["rho_unitary_passes"] + c["rho_channel_passes"] == 3 * single + 11 * cz
+    assert sum(name == "qubism.density.unitary" for name, _, _ in spans) == single + 3 * cz
+    assert sum(name == "qubism.density.channel" for name, _, _ in spans) == single + 5 * cz
+
+
+def test_a_measurement_reads_rho_inside_the_run():
+    source = ('OPENQASM 2.0;\ninclude "qelib1.inc";\nqreg q[2];\ncreg c[2];\n'
+              "h q[0];\ncx q[0], q[1];\nmeasure q[0] -> c[0];\n")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _run_density(source, shots=None)
+    spans = _spans(prof)
+    reads = [sp for sp in spans if sp[0] == "qubism.density.readout"]
+    assert reads and all(_parent(sp, spans) in ("qubism.density", "qubism.density.readout")
+                         for sp in reads)
+    # h and cx: two passes each; their channels: one on h's qubit, two and
+    # dep2 on cx's. The projection's two diagonal passes are no gate's
+    assert profiling.counters["rho_unitary_passes"] == 2 * 2
+    assert profiling.counters["rho_channel_passes"] == 1 + 3
+
+
+def test_verbose_line_of_a_density_program(monkeypatch, capsys):
+    monkeypatch.setattr(profiling, "VERBOSE", True)
+    p = noisy_boixo.draw(NOISY, 7)
+    _run_density(noisy_boixo.text(NOISY, p))
+    (line,) = [ln for ln in capsys.readouterr().err.splitlines() if "program: host ms" in ln]
+    for name in ("qubism.program", *DENSITY_PARENT):
+        assert f"{name} " in line
+    c = profiling.counters
+    assert line.endswith(f"syncs 0, prims 0, fused_ops 0, rho_unitary_passes "
+                         f"{c['rho_unitary_passes']}, rho_channel_passes "
+                         f"{c['rho_channel_passes']}")
