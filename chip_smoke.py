@@ -63,8 +63,9 @@ at n = 28 (``time n=28 gate dev`` etc.). The paths:
   ``:save`` of a 26-qubit register and ``:load`` in a second ``Repl``;
 * the density path: noisy brickwork-14 and GHZ-14 (a 2^28 state) through
   ``eval_file(backend="density", noise=...)`` with observables, shots and a
-  dump, against the same programs with every pass applied by the plain
-  versions, and ``apply_channel`` against ``apply_channel_plain``;
+  dump (each run of gates on at most two qubits and their channels one
+  composed pass), against the same programs with every pass applied by the
+  plain versions, and ``apply_channel`` against ``apply_channel_plain``;
 * the mesh density path: n = 15 as 4 shards of 2^28 on the one card against
   ``DensityMatrix``, and n = 12 entry by entry; ``lindblad_evolve`` on
   ``ShardedDensityMatrix(14)`` (bench.py's damping from |1...1> at rate 0.8
@@ -309,7 +310,9 @@ PATH_KERNELS = {
     "bandwidth probe": ("probe_stream", "probe_copy", "probe_read", "probe_pair", "lane"),
     "mesh path": ("butterfly", "gate", "diag", "lane", "stage"),
     "observables": ("gate", "diag", "lane", "stage"),
-    "density path": ("gate", "diag", "lane"),
+    # a run of gates on at most two qubits and their channels is one gate pass
+    # over rho; diag projects it at a measurement or reset
+    "density path": ("gate", "diag"),
     "mesh density path": ("gate", "diag"),
     "variational": ("gate", "diag", "lane", "layer1q"),
     "variational mesh": ("diag", "lane", "layer1q"),
@@ -1863,6 +1866,7 @@ def run_density_path():
     from qubism_torch.ops import kernels
     from qubism_torch.qasm.parser import parse_openqasm
     from qubism_torch.run.noisy import DensityProgram
+    from qubism_torch.utils import profiling
 
     n = N_DENS
     parity = mixed_pauli(n, {0: "Z", n - 1: "Z"})
@@ -1871,6 +1875,7 @@ def run_density_path():
         path = os.path.join(EXAMPLES, f"<chip_smoke {label}>.qasm")
         got = {}
         buf = io.StringIO()
+        fused0 = profiling.counters.get("rho_fused_passes", 0)
         t0 = time.perf_counter()
         with counted_plain() as plain:
             rc = cli.eval_file(path, source=src, out=buf, seed=3, backend="density", noise=NOISE,
@@ -1892,7 +1897,8 @@ def run_density_path():
         passes = sum(kernels.launches[k] for k in ("gate", "diag", "lane"))
         log(f"density {label}: {secs:.2f} s, trace {tr:.7f}, purity {pur:.6f}, "
             f"<Z0 Z{n - 1}> = {vals[parity]:.6f}, {len(counts)} outcomes in {SHOTS} shots, "
-            f"{passes} kernel passes so far on this path")
+            f"{passes} kernel passes so far on this path; the program's composed runs "
+            f"(rho_fused_passes) {profiling.counters.get('rho_fused_passes', 0) - fused0}")
         check(abs(tr - 1) <= 1e-5 and pur < 1 - 1e-3, f"{label}: trace {tr}, purity {pur}")
         check("Density matrix of q: " in text and f"noise={NOISE.replace(',', ', ')}" in text,
               f"{label}: no dump in\n{text[:400]}")

@@ -12,6 +12,10 @@ with the ROW index in the top n qubits, the layout
   S = sum_i K_i (x) conj(K_i) on the targets (T, T + n): a dense gate on 2
   qubits (a 1-qubit channel) or 4 (``depolarizing2``), which the gate kernel
   applies in one pass (it needs no unitarity);
+* so a run of unitaries and channels on at most two qubits S is one linear
+  map too, U (x) conj(U) and each channel's S multiplied out on (S, S + n):
+  :meth:`DensityMatrix.apply_superoperator` applies it in one pass of the
+  gate kernel (``run.noisy.DensityProgram`` composes each run of its gates);
 * Tr(P rho) reads the 2^n entries rho[x, x ^ f]; probabilities are the
   diagonal; the purity Tr(rho^2) is the squared norm of the tensor.
 
@@ -27,11 +31,16 @@ GiB) and n = 16 (32 GiB) in one buffer. The mesh path's shards
 (parallel/density.py) lift the cap; one card's shards exist only on the CPU.
 
 The engine's work is traced as the spans ``qubism.density.unitary`` (the
-row and column passes of :meth:`DensityMatrix.apply`),
-``qubism.density.channel`` (a channel's superoperator, built and applied)
-and ``qubism.density.readout`` (the diagonal, the trace, shots and
-mid-circuit measurement), and counted as ``rho_unitary_passes`` and
-``rho_channel_passes``, one per pass over rho (``utils.profiling``).
+row and column passes of :meth:`DensityMatrix.apply`, and a composed run,
+built and applied, which the caller opens around
+:meth:`DensityMatrix.apply_superoperator`), ``qubism.density.channel`` (a
+channel's superoperator, built and applied) and ``qubism.density.readout``
+(the diagonal, the trace, shots and mid-circuit measurement), and counted
+one per pass over rho (``utils.profiling``): ``rho_unitary_passes`` and
+``rho_channel_passes`` for the passes of :meth:`DensityMatrix.apply` and
+:meth:`DensityMatrix.apply_channel`, ``rho_fused_passes`` for those of
+:meth:`DensityMatrix.apply_superoperator`, beside ``rho_fused_prims``, the
+gates composed into them.
 """
 
 from __future__ import annotations
@@ -219,6 +228,19 @@ class DensityMatrix:
             row, col = self._channel_targets(targets)
             A.apply_gate(self.state, superoperator(kraus), row + col, 2 * self.n)
             profiling.count("rho_channel_passes")
+        return self
+
+    def apply_superoperator(self, s, qubits, prims: int = 1) -> "DensityMatrix":
+        """One pass of the host superoperator ``s`` ((4^k, 4^k), complex, on
+        the row qubits ``qubits`` then their columns, in that order): the map
+        of ``prims`` gates and the channels after each, composed by the
+        caller. k <= 2 runs in one pass of the gate kernel, which rounds
+        ``s`` to complex64 once. The caller opens the span around the build
+        and this call."""
+        row, col = self._channel_targets(qubits)
+        A.apply_gate(self.state, s, row + col, 2 * self.n)
+        profiling.count("rho_fused_passes")
+        profiling.count("rho_fused_prims", prims)
         return self
 
     def apply_channel_plain(self, kraus, targets) -> "DensityMatrix":

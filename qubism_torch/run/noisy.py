@@ -640,12 +640,23 @@ class DensityProgram:
     Mid-circuit measurement samples ONE outcome per measure and projects
     rho (like hardware, one run); ``--shots`` then reads the exact final
     diagonal.
+
+    On one buffer, each run of consecutive gates whose qubits together
+    number at most :attr:`FUSED_WIDTH` is one pass over rho: the gates and
+    the channels after each, composed on the host into one superoperator
+    (:meth:`~qubism_torch.core.density.DensityMatrix.apply_superoperator`).
+    A measurement, reset, conditional or dump ends the run before it, and
+    a wider gate takes a pass for its rows, one for its columns and one a
+    channel. The mesh's rho takes the latter route for every gate.
     """
 
     #: 2*n qubits ride the dense engine: the widest rho in one buffer on the
     #: CPU, the JAX package's cap (its TPU's 2^29-element buffers). A CUDA
     #: card holds more: :func:`single_buffer_cap`.
     MAX_N = 14
+    #: the widest run of gates composed into one pass: its superoperator on
+    #: 2 x 2 qubits is the gate kernel's widest matrix
+    FUSED_WIDTH = 2
 
     def __init__(self, ast, noise=None, mesh=None):
         from .compiler import elaborate
@@ -677,6 +688,8 @@ class DensityProgram:
                     "use trajectory mode")
         self.noise, self._tsets = _normalize_noise(
             noise, self.layout, self.qreg_sizes, self.n)
+        #: each channel's superoperator, built once for the composed runs
+        self._supers = [channels.superoperator(ks) for _, ks, _ in self.noise]
 
     def run(self, seed: int | None = None, dump_writer=None, uniforms=None):
         """Execute from |0...0><0...0|. Returns (rho, cregs dict); rho is
@@ -705,22 +718,36 @@ class DensityProgram:
             rho = DensityMatrix(self.n)
         cregs = dict(self.cregs0)
 
+        fused = isinstance(rho, DensityMatrix)
+        run: list = []  # the pending run of gates, composed into one pass
+        qubits: set = set()  # the qubits they touch
+
+        def flush():
+            if run:
+                with profiling.span("qubism.density.unitary"):
+                    order = tuple(sorted(qubits))
+                    rho.apply_superoperator(self._superoperator(run, order), order, len(run))
+                run.clear()
+                qubits.clear()
+
         def exec_events(events):
             for ev in events:
                 if isinstance(ev, EvGates):
                     for p in ev.prims:
+                        t = {int(q) for q in p.targets}
+                        if fused and len(t) <= self.FUSED_WIDTH:
+                            if len(qubits | t) > self.FUSED_WIDTH:
+                                flush()
+                            run.append(p)
+                            qubits.update(t)
+                            continue
+                        flush()
                         rho.apply([p])
-                        for (_, ks, _), tset in zip(self.noise, self._tsets):
-                            if np.asarray(ks[0]).shape[0] == 4:
-                                t = tuple(int(q) for q in p.targets)
-                                if len(t) == 2 and (tset is None
-                                                    or set(t) <= tset):
-                                    rho.apply_channel(ks, t)
-                            else:
-                                for q in p.targets:
-                                    if tset is None or int(q) in tset:
-                                        rho.apply_channel(ks, (int(q),))
-                elif isinstance(ev, EvMeasure):
+                        for ks, _, ct in self._channels(p):
+                            rho.apply_channel(ks, ct)
+                    continue
+                flush()  # every other event reads or changes rho as it stands
+                if isinstance(ev, EvMeasure):
                     bits = [rho.measure_qubit(q, gen, None if injected is None
                                               else float(next(injected)))
                             for q in ev.qubits]
@@ -742,11 +769,47 @@ class DensityProgram:
                     dump_writer(self._pretty(rho, cregs))
 
         exec_events(self.events)
+        flush()
         # the recursive closure is a reference cycle that holds rho: break it,
         # so that rho's memory is freed when the caller drops it, not at the
         # next garbage collection
         exec_events = None
         return rho, cregs
+
+    def _channels(self, p):
+        """The channels that follow gate ``p``, in the spec's order, as
+        (Kraus list, superoperator, targets): a 1-qubit channel on each of
+        the gate's qubits in its set, a 2-qubit one (4x4 Kraus) on a 2-qubit
+        gate whose qubits are both in its set, in the gate's target order."""
+        for (_, ks, _), s, tset in zip(self.noise, self._supers, self._tsets):
+            if np.asarray(ks[0]).shape[0] == 4:
+                t = tuple(int(q) for q in p.targets)
+                if len(t) == 2 and (tset is None or set(t) <= tset):
+                    yield ks, s, t
+            else:
+                for q in p.targets:
+                    if tset is None or int(q) in tset:
+                        yield ks, s, (int(q),)
+
+    def _superoperator(self, prims, qubits):
+        """The map of a run of gates on ``qubits`` (sorted) and the channels
+        after each, on vec(rho)'s (qubits, qubits + n): each gate's
+        U (x) conj(U) and each channel's superoperator, widened to those
+        targets and multiplied from the left in the order the pass-by-pass
+        route applies them, in complex128."""
+        n = self.n
+        dst = tuple(qubits) + tuple(q + n for q in qubits)
+
+        def on(s, t):
+            return A._expand_np(s, t + tuple(q + n for q in t), dst)
+
+        out = np.eye(1 << len(dst), dtype=np.complex128)
+        for p in prims:
+            u = np.asarray(p.dense(), dtype=np.complex128)
+            out = on(np.kron(u, u.conj()), tuple(int(q) for q in p.targets)) @ out
+            for _, s, t in self._channels(p):
+                out = on(s, t) @ out
+        return out
 
     def _pretty(self, rho, cregs) -> str:
         out = ["Dump of the internal state (density backend): \n\n"]

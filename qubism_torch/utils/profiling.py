@@ -8,9 +8,10 @@ A span marks where the port's host works: ``qubism.program`` (one file),
 ``qubism.parse``, ``qubism.lex``, ``qubism.interp``, ``qubism.flush``,
 ``qubism.fuse``, ``qubism.plan``, ``qubism.sync`` (a copy between host and
 device) and ``qubism.sample``; on the exact density backend
-``qubism.density`` (a run) around ``qubism.density.unitary``,
-``qubism.density.channel`` and ``qubism.density.readout``; each nested in
-its caller. Under a running
+``qubism.density`` (a run) around ``qubism.density.unitary`` (a gate's row
+and column passes, or a run of gates and their channels composed into one
+superoperator and applied in one pass), ``qubism.density.channel`` and
+``qubism.density.readout``; each nested in its caller. Under a running
 ``torch.profiler`` a span is a ``record_function`` on the profiler's clock,
 the clock of the device's work in the same trace; under ``--verbose`` its
 host time is summed by name; otherwise it is a shared no-op context.
@@ -39,14 +40,17 @@ VERBOSE = False
 #: events since the last ``ops.kernels.reset_launches()``: ``syncs`` (copies
 #: across the host/device boundary, ``ops.apply.to_device`` / ``to_host``),
 #: ``prims`` and ``fused_ops`` (what each interpreter flush hands to
-#: ``ops.fusion.fuse`` and gets back), ``rho_unitary_passes`` and
-#: ``rho_channel_passes`` (passes over a density matrix, ``core.density``)
+#: ``ops.fusion.fuse`` and gets back), ``rho_unitary_passes``,
+#: ``rho_channel_passes`` and ``rho_fused_passes`` (passes over a density
+#: matrix, ``core.density``: a gate's rows or columns, a channel, a composed
+#: run of gates and channels) and ``rho_fused_prims`` (the gates of those runs)
 counters: dict[str, int] = {}
 
 #: the counters the --verbose line always reports, and those it reports
 #: where they rose in the program
 _REPORTED = ("syncs", "prims", "fused_ops")
-_REPORTED_IF_ANY = ("rho_unitary_passes", "rho_channel_passes")
+_REPORTED_IF_ANY = ("rho_unitary_passes", "rho_channel_passes", "rho_fused_passes",
+                    "rho_fused_prims")
 
 #: host seconds in each span name while VERBOSE, in the current program
 span_s: dict[str, float] = {}

@@ -54,6 +54,18 @@ def _cfg(lattice, depth, noise=NOISES[0]):
             "noise": noise}
 
 
+def _greedy_runs(targets, width=2):
+    """How many runs a list of gate targets falls into when each run takes
+    the next gates while their qubits together number at most ``width``."""
+    runs, cur = 0, set()
+    for t in targets:
+        if not cur or len(cur | set(t)) > width:
+            runs, cur = runs + 1, set(t)
+        else:
+            cur |= set(t)
+    return runs
+
+
 def _reference(cfg, p) -> np.ndarray:
     ops = ref.noisy_ops(noisy_boixo.elaborated(cfg, p), ref.parse_noise(cfg["noise"]))
     return ref.evolve(cfg["qubits"], ops).numpy()
@@ -203,12 +215,20 @@ def test_cell_correct_on_cpu(trace):
     assert r["attempted"] >= 1 and r["failed"] == 0
     assert set(r["checks"]) == {"state_err", "amps_err"}
     if trace:
-        # 2 x 3 at depth 8: 31 single-qubit gates (3 passes each: row, column,
-        # channel) and 9 cz (h, cx, h: 3 + 5 + 3)
-        # over the window's programs; launches count CUDA kernels alone, so
+        # 2 x 3 at depth 8: 31 single-qubit gates and 9 cz (h, cx, h), 58
+        # elaborated gates in greedy runs on at most two qubits, each run with
+        # its channels one pass, over the window's programs (every draw has
+        # the same targets); launches count CUDA kernels alone, so
         # passes_per_program reads 0 on the CPU
-        passes = profiling.counters["rho_unitary_passes"] + profiling.counters["rho_channel_passes"]
-        assert passes == (31 * 3 + 9 * 11) * r["attempted"]
+        cfg = cell.cfg
+        targets = {tuple(t for _, t in noisy_boixo.elaborated(cfg, noisy_boixo.draw(cfg, s)))
+                   for s in (0, 1, SEED)}
+        (targets,) = targets
+        assert len(targets) == 31 + 3 * 9
+        c = profiling.counters
+        assert c["rho_fused_passes"] == _greedy_runs(targets) * r["attempted"]
+        assert c["rho_fused_prims"] == len(targets) * r["attempted"]
+        assert c.get("rho_unitary_passes", 0) + c.get("rho_channel_passes", 0) == 0
         assert r["metrics"]["passes_per_program"]["value"] == 0
         assert r["metrics"]["syncs_per_program"]["value"] == 0
         assert r["metrics"]["rho_host_ms"]["value"] > 0

@@ -188,15 +188,28 @@ def test_verbose_spans_also_reach_a_running_profiler(monkeypatch):
 NOISY = {"lattice": [2, 3], "qubits": 6, "num_qubits": 12, "cz_depth": 8,
          "noise": "depolarizing:0.0016,dep2:0.0062"}
 #: each span of a density run and the span it runs in; the shots' readout
-#: runs after the run, in the program
+#: runs after the run, in the program. Every gate of these texts is on at
+#: most two qubits, so each run of gates and channels is one composed pass
+#: (``qubism.density.unitary``) and no ``qubism.density.channel`` opens
 DENSITY_PARENT = {
     "qubism.parse": "qubism.program",
     "qubism.lex": "qubism.parse",
     "qubism.density": "qubism.program",
     "qubism.density.unitary": "qubism.density",
-    "qubism.density.channel": "qubism.density",
     "qubism.density.readout": "qubism.program",
 }
+
+
+def _greedy_runs(targets, width=2):
+    """How many runs a list of gate targets falls into when each run takes
+    the next gates while their qubits together number at most ``width``."""
+    runs, cur = 0, set()
+    for t in targets:
+        if not cur or len(cur | set(t)) > width:
+            runs, cur = runs + 1, set(t)
+        else:
+            cur |= set(t)
+    return runs
 
 
 def _run_density(source, shots=64):
@@ -223,14 +236,17 @@ def test_density_spans_nest_and_count_every_pass_over_rho():
             assert _parent(sp, spans) == "qubism.density.readout"
         elif sp[0] != "qubism.program":
             assert _parent(sp, spans) == DENSITY_PARENT[sp[0]], sp[0]
-    # a noisy U: its row and column passes and its channel; a cz (h, cx, h):
-    # 3 U's row and column passes, a channel on each qubit of each, and dep2
+    # the elaborated gates (a U each, a cz h, cx, h) fall into greedy runs
+    # on at most two qubits, each with its channels one pass and one span;
+    # the pass-by-pass route (3 passes a noisy U, 11 a cz) is not taken
+    runs = _greedy_runs([t for _, t in noisy_boixo.elaborated(NOISY, p)])
+    assert runs < single + 3 * cz
     c = profiling.counters
-    assert c["rho_unitary_passes"] == 2 * (single + 3 * cz)
-    assert c["rho_channel_passes"] == single + 5 * cz
-    assert c["rho_unitary_passes"] + c["rho_channel_passes"] == 3 * single + 11 * cz
-    assert sum(name == "qubism.density.unitary" for name, _, _ in spans) == single + 3 * cz
-    assert sum(name == "qubism.density.channel" for name, _, _ in spans) == single + 5 * cz
+    assert c["rho_fused_passes"] == runs
+    assert c["rho_fused_prims"] == single + 3 * cz
+    assert c.get("rho_unitary_passes", 0) + c.get("rho_channel_passes", 0) == 0
+    assert sum(name == "qubism.density.unitary" for name, _, _ in spans) == runs
+    assert sum(name == "qubism.density.channel" for name, _, _ in spans) == 0
 
 
 def test_a_measurement_reads_rho_inside_the_run():
@@ -242,10 +258,12 @@ def test_a_measurement_reads_rho_inside_the_run():
     reads = [sp for sp in spans if sp[0] == "qubism.density.readout"]
     assert reads and all(_parent(sp, spans) in ("qubism.density", "qubism.density.readout")
                          for sp in reads)
-    # h and cx: two passes each; their channels: one on h's qubit, two and
-    # dep2 on cx's. The projection's two diagonal passes are no gate's
-    assert profiling.counters["rho_unitary_passes"] == 2 * 2
-    assert profiling.counters["rho_channel_passes"] == 1 + 3
+    # h and cx on q[0], q[1] with their channels (one on h's qubit, two and
+    # dep2 on cx's): one composed pass, before the measurement ends the run.
+    # The projection's two diagonal passes are no gate's
+    c = profiling.counters
+    assert (c["rho_fused_passes"], c["rho_fused_prims"]) == (1, 2)
+    assert c.get("rho_unitary_passes", 0) + c.get("rho_channel_passes", 0) == 0
 
 
 def test_verbose_line_of_a_density_program(monkeypatch, capsys):
@@ -255,7 +273,7 @@ def test_verbose_line_of_a_density_program(monkeypatch, capsys):
     (line,) = [ln for ln in capsys.readouterr().err.splitlines() if "program: host ms" in ln]
     for name in ("qubism.program", *DENSITY_PARENT):
         assert f"{name} " in line
-    c = profiling.counters
-    assert line.endswith(f"syncs 0, prims 0, fused_ops 0, rho_unitary_passes "
-                         f"{c['rho_unitary_passes']}, rho_channel_passes "
-                         f"{c['rho_channel_passes']}")
+    runs = _greedy_runs([t for _, t in noisy_boixo.elaborated(NOISY, p)])
+    prims = len(noisy_boixo.elaborated(NOISY, p))
+    assert line.endswith(f"syncs 0, prims 0, fused_ops 0, rho_fused_passes {runs}, "
+                         f"rho_fused_prims {prims}")
