@@ -15,7 +15,14 @@ with the ROW index in the top n qubits, the layout
 * so a run of unitaries and channels on at most two qubits S is one linear
   map too, U (x) conj(U) and each channel's S multiplied out on (S, S + n):
   :meth:`DensityMatrix.apply_superoperator` applies it in one pass of the
-  gate kernel (``run.noisy.DensityProgram`` composes each run of its gates);
+  gate kernel. ``run.noisy.DensityProgram`` groups the gates between two
+  barriers (a measurement, reset, conditional, dump or wider gate) into
+  such runs (``run.noisy.group_runs``): a gate joins the latest run on its
+  qubits where the run stays on two qubits, and a single-qubit gate waits
+  for its qubit's next run, so a cz's pass takes the 1-qubit gates around
+  it. That is exact because a gate and its channels move only past gates
+  and channels on other qubits, which commute with them: every qubit's
+  gates keep their program order;
 * Tr(P rho) reads the 2^n entries rho[x, x ^ f]; probabilities are the
   diagonal; the purity Tr(rho^2) is the squared norm of the tensor.
 

@@ -34,9 +34,9 @@ from ..ops import measure as M
 from ..ops.apply import _sort_targets
 from ..utils import profiling
 
-__all__ = ["TrajectoryProgram", "DensityProgram", "single_buffer_cap", "parse_noise_spec",
-           "NOISE_CHANNELS", "split_channel_target", "noise_spec_targets",
-           "resolve_noise_targets", "resolve_traj_mesh"]
+__all__ = ["TrajectoryProgram", "DensityProgram", "single_buffer_cap", "group_runs",
+           "parse_noise_spec", "NOISE_CHANNELS", "split_channel_target",
+           "noise_spec_targets", "resolve_noise_targets", "resolve_traj_mesh"]
 
 #: name (and aliases) -> 1-qubit Kraus-list factory taking one float param.
 NOISE_CHANNELS = {
@@ -630,6 +630,55 @@ def single_buffer_cap(dev: torch.device) -> int:
     return n
 
 
+#: the widest run of gates :class:`DensityProgram` composes into one pass:
+#: its superoperator on 2 x 2 qubits is the gate kernel's widest matrix
+FUSED_WIDTH = 2
+
+
+def group_runs(targets) -> list[list[int]]:
+    """The runs into which :class:`DensityProgram` groups a stretch of gates
+    on at most :data:`FUSED_WIDTH` qubits each between two barriers, given
+    each gate's qubits in program order: lists of the gates' indices, each
+    in program order, in the order the runs are applied.
+
+    A gate joins the latest run on any of its qubits if their qubits
+    together number at most :data:`FUSED_WIDTH`. Otherwise a single-qubit
+    gate waits for its qubit's first run, and a wider gate opens a run,
+    which takes the gates waiting on its qubits first. Gates still waiting
+    at the end (their qubits have no run) pair up into runs of their own,
+    applied last.
+
+    Applying the runs in this order is exact: on every qubit the gates keep
+    their program order. A gate joins a run after which no run holds any of
+    its qubits, so it moves ahead only of runs on other qubits. A waiting
+    gate goes into the first run on its qubit, ahead of that qubit's later
+    gates, or into a run of its own after every run, none of which holds
+    its qubit. And a gate on other qubits, with the channels after it,
+    commutes with it.
+    """
+    runs: list[tuple[set, list]] = []  # (qubits, gate indices), in the order opened
+    latest: dict[int, int] = {}  # qubit -> its latest run
+    waiting: dict[int, list] = {}  # qubit -> its gates that no run holds yet
+    for g, t in enumerate(targets):
+        t = {int(q) for q in t}
+        r = max((latest[q] for q in t if q in latest), default=None)
+        if r is None or len(runs[r][0] | t) > FUSED_WIDTH:
+            if len(t) == 1:
+                (q,) = t
+                waiting.setdefault(q, []).append(g)
+                continue
+            r = len(runs)
+            runs.append((set(), []))
+        qubits, gates = runs[r]
+        gates.extend(sorted(i for q in t for i in waiting.pop(q, ())))
+        gates.append(g)
+        qubits |= t
+        latest.update(dict.fromkeys(t, r))
+    left = list(waiting.values())
+    return [gates for _, gates in runs] + [
+        sorted(sum(left[i:i + FUSED_WIDTH], [])) for i in range(0, len(left), FUSED_WIDTH)]
+
+
 class DensityProgram:
     """Exact open-system execution of a QASM program: the state is a
     vectorized density matrix on the dense engine (a 2n-qubit tensor,
@@ -641,22 +690,26 @@ class DensityProgram:
     rho (like hardware, one run); ``--shots`` then reads the exact final
     diagonal.
 
-    On one buffer, each run of consecutive gates whose qubits together
-    number at most :attr:`FUSED_WIDTH` is one pass over rho: the gates and
-    the channels after each, composed on the host into one superoperator
+    On one buffer, the gates on at most :data:`FUSED_WIDTH` qubits between
+    two barriers (a measurement, reset, conditional, dump, a wider gate or
+    the end) are grouped into runs on at most that many qubits
+    (:func:`group_runs`): a gate joins the latest run on its qubits where
+    it fits, and a single-qubit gate waits for its qubit's next run. Each
+    run is one pass over rho: its gates and the channels after each,
+    composed on the host into one superoperator in program order
     (:meth:`~qubism_torch.core.density.DensityMatrix.apply_superoperator`).
-    A measurement, reset, conditional or dump ends the run before it, and
-    a wider gate takes a pass for its rows, one for its columns and one a
-    channel. The mesh's rho takes the latter route for every gate.
+    The runs are applied in the order they were opened, which keeps the
+    gates of every qubit in program order: a gate moves only past gates
+    and channels on other qubits, which commute with it. So a Boixo cycle's
+    single-qubit gates ride in the pass of their qubit's next cz. A wider
+    gate takes a pass for its rows, one for its columns and one a channel;
+    the mesh's rho takes that route for every gate.
     """
 
     #: 2*n qubits ride the dense engine: the widest rho in one buffer on the
     #: CPU, the JAX package's cap (its TPU's 2^29-element buffers). A CUDA
     #: card holds more: :func:`single_buffer_cap`.
     MAX_N = 14
-    #: the widest run of gates composed into one pass: its superoperator on
-    #: 2 x 2 qubits is the gate kernel's widest matrix
-    FUSED_WIDTH = 2
 
     def __init__(self, ast, noise=None, mesh=None):
         from .compiler import elaborate
@@ -719,27 +772,22 @@ class DensityProgram:
         cregs = dict(self.cregs0)
 
         fused = isinstance(rho, DensityMatrix)
-        run: list = []  # the pending run of gates, composed into one pass
-        qubits: set = set()  # the qubits they touch
+        narrow: list = []  # the gates since the last barrier, grouped at the next
 
         def flush():
-            if run:
+            for run in group_runs([p.targets for p in narrow]):
                 with profiling.span("qubism.density.unitary"):
-                    order = tuple(sorted(qubits))
-                    rho.apply_superoperator(self._superoperator(run, order), order, len(run))
-                run.clear()
-                qubits.clear()
+                    prims = [narrow[i] for i in run]
+                    order = tuple(sorted({int(q) for p in prims for q in p.targets}))
+                    rho.apply_superoperator(self._superoperator(prims, order), order, len(prims))
+            narrow.clear()
 
         def exec_events(events):
             for ev in events:
                 if isinstance(ev, EvGates):
                     for p in ev.prims:
-                        t = {int(q) for q in p.targets}
-                        if fused and len(t) <= self.FUSED_WIDTH:
-                            if len(qubits | t) > self.FUSED_WIDTH:
-                                flush()
-                            run.append(p)
-                            qubits.update(t)
+                        if fused and len(p.targets) <= FUSED_WIDTH:
+                            narrow.append(p)
                             continue
                         flush()
                         rho.apply([p])

@@ -32,6 +32,7 @@ from qubism_torch.cli import eval_file  # noqa: E402
 from qubism_torch.config import config  # noqa: E402
 from qubism_torch.core import density as TD  # noqa: E402
 from qubism_torch.ops import apply as TA  # noqa: E402
+from qubism_torch.run.noisy import group_runs  # noqa: E402
 from qubism_torch.utils import profiling  # noqa: E402
 
 #: Sycamore's gate errors (the configuration's), and a noise 30x stronger
@@ -52,18 +53,6 @@ def _cfg(lattice, depth, noise=NOISES[0]):
     q = lattice[0] * lattice[1]
     return {"lattice": list(lattice), "qubits": q, "num_qubits": 2 * q, "cz_depth": depth,
             "noise": noise}
-
-
-def _greedy_runs(targets, width=2):
-    """How many runs a list of gate targets falls into when each run takes
-    the next gates while their qubits together number at most ``width``."""
-    runs, cur = 0, set()
-    for t in targets:
-        if not cur or len(cur | set(t)) > width:
-            runs, cur = runs + 1, set(t)
-        else:
-            cur |= set(t)
-    return runs
 
 
 def _reference(cfg, p) -> np.ndarray:
@@ -216,9 +205,9 @@ def test_cell_correct_on_cpu(trace):
     assert set(r["checks"]) == {"state_err", "amps_err"}
     if trace:
         # 2 x 3 at depth 8: 31 single-qubit gates and 9 cz (h, cx, h), 58
-        # elaborated gates in greedy runs on at most two qubits, each run with
-        # its channels one pass, over the window's programs (every draw has
-        # the same targets); launches count CUDA kernels alone, so
+        # elaborated gates in runs on at most two qubits, one a cx, each run
+        # with its channels one pass, over the window's programs (every draw
+        # has the same targets); launches count CUDA kernels alone, so
         # passes_per_program reads 0 on the CPU
         cfg = cell.cfg
         targets = {tuple(t for _, t in noisy_boixo.elaborated(cfg, noisy_boixo.draw(cfg, s)))
@@ -226,7 +215,8 @@ def test_cell_correct_on_cpu(trace):
         (targets,) = targets
         assert len(targets) == 31 + 3 * 9
         c = profiling.counters
-        assert c["rho_fused_passes"] == _greedy_runs(targets) * r["attempted"]
+        assert len(group_runs(targets)) == 9
+        assert c["rho_fused_passes"] == 9 * r["attempted"]
         assert c["rho_fused_prims"] == len(targets) * r["attempted"]
         assert c.get("rho_unitary_passes", 0) + c.get("rho_channel_passes", 0) == 0
         assert r["metrics"]["passes_per_program"]["value"] == 0

@@ -22,6 +22,7 @@ from qubism_torch.core.gates import Prim  # noqa: E402
 from qubism_torch.ops import apply, fusion, kernels  # noqa: E402
 from qubism_torch.qasm.parser import parse_openqasm  # noqa: E402
 from qubism_torch.run.interpreter import run_program  # noqa: E402
+from qubism_torch.run.noisy import group_runs  # noqa: E402
 from qubism_torch.utils import profiling  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -200,18 +201,6 @@ DENSITY_PARENT = {
 }
 
 
-def _greedy_runs(targets, width=2):
-    """How many runs a list of gate targets falls into when each run takes
-    the next gates while their qubits together number at most ``width``."""
-    runs, cur = 0, set()
-    for t in targets:
-        if not cur or len(cur | set(t)) > width:
-            runs, cur = runs + 1, set(t)
-        else:
-            cur |= set(t)
-    return runs
-
-
 def _run_density(source, shots=64):
     out = io.StringIO()
     path = os.path.join(ROOT, "qbench", "program.qasm")  # includes qbench/qelib1.inc
@@ -236,11 +225,12 @@ def test_density_spans_nest_and_count_every_pass_over_rho():
             assert _parent(sp, spans) == "qubism.density.readout"
         elif sp[0] != "qubism.program":
             assert _parent(sp, spans) == DENSITY_PARENT[sp[0]], sp[0]
-    # the elaborated gates (a U each, a cz h, cx, h) fall into greedy runs
-    # on at most two qubits, each with its channels one pass and one span;
-    # the pass-by-pass route (3 passes a noisy U, 11 a cz) is not taken
-    runs = _greedy_runs([t for _, t in noisy_boixo.elaborated(NOISY, p)])
-    assert runs < single + 3 * cz
+    # the elaborated gates (a U each, a cz h, cx, h) fall into runs on at
+    # most two qubits, one a cz's cx, each with its channels one pass and
+    # one span; the pass-by-pass route (3 passes a noisy U, 11 a cz) is not
+    # taken
+    runs = len(group_runs([t for _, t in noisy_boixo.elaborated(NOISY, p)]))
+    assert runs == cz
     c = profiling.counters
     assert c["rho_fused_passes"] == runs
     assert c["rho_fused_prims"] == single + 3 * cz
@@ -273,7 +263,7 @@ def test_verbose_line_of_a_density_program(monkeypatch, capsys):
     (line,) = [ln for ln in capsys.readouterr().err.splitlines() if "program: host ms" in ln]
     for name in ("qubism.program", *DENSITY_PARENT):
         assert f"{name} " in line
-    runs = _greedy_runs([t for _, t in noisy_boixo.elaborated(NOISY, p)])
+    runs = len(group_runs([t for _, t in noisy_boixo.elaborated(NOISY, p)]))
     prims = len(noisy_boixo.elaborated(NOISY, p))
     assert line.endswith(f"syncs 0, prims 0, fused_ops 0, rho_fused_passes {runs}, "
                          f"rho_fused_prims {prims}")
