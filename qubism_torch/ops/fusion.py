@@ -7,9 +7,11 @@ over the state by one kernel of :mod:`.kernels`:
   of 2q diagonals (q, j), j > q, whose q = 0 branch is the identity (the
   QFT stage) is a :class:`StageOp`; runs of stages on adjacent qubits are
   grouped into :class:`StageBlockOp` passes of up to ``stage_group``
-  stages (the ``stage`` kernel). QASM input never produces them (the
-  interpreter and the compiler queue only U and CX, and qelib1's ``cu1``
-  expands to those); prim streams with real 2q diagonal prims do
+  stages (the ``stage`` kernel). QASM input hardly produces them (the
+  interpreter and the compiler queue only U and CX, qelib1's ``cu1``
+  expands to those, and the diagonal that :func:`diagonal_runs` makes of
+  one carries rounding in its identity branch); prim streams with real
+  2q diagonal prims do
   (``models.circuits.qft_prims``, the DSL's ``controlled(i, phase(l))``).
 * **Dense blocks** (qsim-style): consecutive primitives whose combined
   target set stays within ``max_block`` (<= 4) qubits are multiplied
@@ -41,10 +43,28 @@ caps, virtual shards, chunked jits and operand caches) is not carried over.
 ``keep_separate_below`` and :func:`split_op_virtual`, which the JAX package
 shares between its virtual shards and the mesh's banks, serve the mesh's
 banks here (:mod:`qubism_torch.parallel.sharded`).
+
+**The QASM routes depart further** (:func:`fuse_scheduled`: the
+interpreter's flushes and ``--compile``'s segments; :func:`fuse`, the DSL,
+the models and the mesh keep the greedy order above). Greedy fusion in
+program order folds qelib1's cz (h, cx, h) with the gates beside it into
+dense 4-qubit blocks, so a random circuit's CZ layer never becomes a
+diagonal pass nor its 1-qubit layer a ``layer1q`` pass. So a flush is also
+planned reordered: each run of consecutive prims on at most 2 qubits whose
+product is diagonal becomes one diagonal prim (:func:`diagonal_runs`: the
+same product), then the prims are placed in as-soon-as-possible layers in
+which only commuting prims change places (:func:`layered`: diagonals
+commute with each other, prims on disjoint qubits commute). That plan is
+kept where it costs fewer passes than the greedy plan of the flush as it
+came, a lane pass counting ``LANE_PASS_COST`` gate passes, both counted from
+targets alone (:func:`_pass_cost`); else the greedy plan is, op for op as
+:func:`fuse` makes it. The reordered plan can break what program order
+gives: a QFT text's cu1 ladders and its swaps' one :class:`PermuteOp`.
 """
 
 from __future__ import annotations
 
+import bisect
 from dataclasses import dataclass
 
 import numpy as np
@@ -208,18 +228,19 @@ def _layer1q_prepass(items, n: int, keep_separate_below: int = 0):
     ``keep_separate_below``, break runs and pass through."""
     b_lane = max(n - _apply._COL, 0)
     out: list = []
-    run: list = []  # [(u, q)]
+    run: list = []  # [Prim]
 
     def flush():
         if len(run) < 4:
-            out.extend(Prim(u, (q,)) for u, q in run)
+            out.extend(run)
         else:
             for i in range(0, len(run), _LAYER1Q_MAX):
                 chunk = run[i:i + _LAYER1Q_MAX]
                 if len(chunk) == 1:
-                    out.append(Prim(chunk[0][0], (chunk[0][1],)))
+                    out.append(chunk[0])
                 else:
-                    out.append(Layer1QOp(tuple(sorted(chunk, key=lambda g: g[1]))))
+                    gates = ((np.asarray(p.u, dtype=np.complex128), p.targets[0]) for p in chunk)
+                    out.append(Layer1QOp(tuple(sorted(gates, key=lambda g: g[1]))))
         run.clear()
 
     for p in items:
@@ -229,10 +250,9 @@ def _layer1q_prepass(items, n: int, keep_separate_below: int = 0):
             flush()
             out.append(p)
             continue
-        q = p.targets[0]
-        if any(q == g[1] for g in run):
+        if any(p.targets == g.targets for g in run):
             flush()
-        run.append((np.asarray(p.u, dtype=np.complex128), q))
+        run.append(p)
     flush()
     return out
 
@@ -247,58 +267,79 @@ def fuse(prims, n: int, max_block: int = DEFAULT_MAX_BLOCK,
     of the mesh path, which :func:`split_op_virtual` splits off) merges with
     no other prim, though diagonals still join a diagonal layer, and joins
     no PermuteOp."""
-    with profiling.span("qubism.fuse"):
-        return _fuse(prims, n, max_block, stage_group, keep_separate_below)
-
-
-def _fuse(prims, n: int, max_block: int, stage_group: int | None,
-          keep_separate_below: int) -> list:
-    max_block = min(max_block, MAX_BLOCK)
     stage_group = STAGE_GROUP if stage_group is None else stage_group
     if not 1 <= stage_group <= 4:
         raise ValueError(f"stage_group {stage_group}: 1..4 supported")
+    with profiling.span("qubism.fuse"):
+        return _lower(_blocks(prims, n, max_block, keep_separate_below), n, stage_group,
+                      keep_separate_below)
+
+
+@dataclass(frozen=True)
+class _Block:
+    """A run of prims that greedy fusion multiplies into one dense block."""
+
+    prims: tuple
+    targets: tuple[int, ...]  # their union, sorted
+
+
+def _blocks(prims, n: int, max_block: int, keep_separate_below: int) -> list:
+    """Greedy fusion's plan, from targets alone: the prepasses' StageOps and
+    Layer1QOps, wide diagonal prims (each a factor as it is) and _Blocks.
+    Nothing is multiplied yet."""
+    max_block = min(max_block, MAX_BLOCK)
     items = _layer1q_prepass(_stage_prepass(prims, n, keep_separate_below), n,
                              keep_separate_below)
-    blocks: list = []
-    cur_u: np.ndarray | None = None
+    out: list = []
+    run: list = []
     cur_t: tuple[int, ...] = ()
-
-    def flush():
-        nonlocal cur_u, cur_t
-        if cur_u is not None:
-            blocks.append(DenseOp(cur_u, cur_t))
-            cur_u, cur_t = None, ()
-
     for p in items:
-        if isinstance(p, (StageOp, Layer1QOp)):
-            flush()
-            blocks.append(p)
-            continue
-        if p.diag and len(p.targets) > 4:
+        if isinstance(p, (StageOp, Layer1QOp)) or (p.diag and len(p.targets) > 4):
             # a wide diagonal (a whole-register Grover oracle) goes straight
             # to a factor: densifying it would build a 2^k x 2^k matrix
-            flush()
-            blocks.append(_prim_sorted_diag(p))
+            if run:
+                out.append(_Block(tuple(run), cur_t))
+                run = []
+            out.append(p)
             continue
-        u, t = _prim_sorted_dense(p)
-        if cur_u is None:
-            cur_u, cur_t = u, t
-            continue
-        union = tuple(sorted(set(cur_t) | set(t)))
-        if _union_ok(union, n, max_block, keep_separate_below):
-            a = _apply._expand_np(cur_u, cur_t, union)
-            b = _apply._expand_np(u, t, union)
-            cur_u, cur_t = b @ a, union  # p applies after the block
-            continue
-        flush()
-        cur_u, cur_t = u, t
-    flush()
+        t = tuple(sorted(p.targets))
+        if run:
+            union = tuple(sorted(set(cur_t) | set(t)))
+            if _union_ok(union, n, max_block, keep_separate_below):
+                run.append(p)
+                cur_t = union
+                continue
+            out.append(_Block(tuple(run), cur_t))
+        run, cur_t = [p], t
+    if run:
+        out.append(_Block(tuple(run), cur_t))
+    return out
 
-    # merge consecutive diagonal blocks into layers
+
+def _product(prims) -> DenseOp:
+    """The dense block of a run of prims, multiplied in program order."""
+    cur_u, cur_t = _prim_sorted_dense(prims[0])
+    for p in prims[1:]:
+        u, t = _prim_sorted_dense(p)
+        union = tuple(sorted(set(cur_t) | set(t)))
+        a = _apply._expand_np(cur_u, cur_t, union)
+        b = _apply._expand_np(u, t, union)
+        cur_u, cur_t = b @ a, union  # p applies after the block
+    return DenseOp(cur_u, cur_t)
+
+
+def _lower(blocks: list, n: int, stage_group: int, keep_separate_below: int) -> list:
+    """A plan of :func:`_blocks` as fused ops: each _Block multiplied out,
+    diagonal blocks merged into layers, stages grouped, runs of bit
+    permutations merged."""
     out: list = []
     for b in blocks:
-        if isinstance(b, DenseOp) and is_diagonal(b.u):
-            b = DiagLayer(((np.diag(b.u).copy(), b.targets),))
+        if isinstance(b, _Block):
+            b = _product(b.prims)
+            if is_diagonal(b.u):
+                b = DiagLayer(((np.diag(b.u).copy(), b.targets),))
+        elif isinstance(b, Prim):
+            b = _prim_sorted_diag(b)
         if isinstance(b, DiagLayer) and out and isinstance(out[-1], DiagLayer):
             out[-1] = DiagLayer(out[-1].factors + b.factors)
         else:
@@ -392,6 +433,179 @@ def _permute_runs(ops: list, n: int, keep_separate_below: int) -> list:
     return out
 
 
+#: a lane pass's cost in gate passes when :func:`fuse_scheduled` weighs two
+#: plans: at n = 30 a lane pass took 10.8 ms and a 4-qubit gate pass 6.0 ms
+#: on an H100 80GB HBM3 at 700 W
+LANE_PASS_COST = 1.8
+
+#: a 2-qubit index with its two bits swapped: a matrix on (a, b) read on (b, a)
+_SWAP_BITS = np.array([0, 2, 1, 3])
+#: a 1-qubit diagonal spread over a 2-qubit index, on its high or low bit
+_HIGH_BIT = np.array([0, 0, 1, 1])
+_LOW_BIT = np.array([0, 1, 0, 1])
+_OFF_DIAGONAL = ~np.eye(4, dtype=bool)
+_EYE4 = np.eye(4, dtype=np.complex128)
+
+
+def fuse_scheduled(prims, n: int, max_block: int = DEFAULT_MAX_BLOCK) -> list:
+    """Fusion of a QASM route's flush: the greedy plan of :func:`fuse`, or
+    that of the prims after :func:`diagonal_runs` reordered by
+    :func:`layered`, whichever :func:`_pass_cost` finds cheaper (the greedy
+    plan on a tie). Only the plan kept is multiplied out. Counts one of
+    ``sched_greedy`` / ``sched_layered``, and with the latter its
+    ``diag_runs`` (``utils.profiling.counters``)."""
+    with profiling.span("qubism.fuse"):
+        prims = list(prims)
+        diagonal, runs = diagonal_runs(prims)
+        plans = (_blocks(prims, n, max_block, 0),
+                 _blocks(layered(diagonal, n), n, max_block, 0))
+        whole = {id(p): {id(q) for q in run} for run in runs for p in run}
+        layer = _pass_cost(plans[1], n) < _pass_cost(plans[0], n, whole)
+        if layer:
+            profiling.count("sched_layered")
+            if runs:
+                profiling.count("diag_runs", len(runs))
+        else:
+            profiling.count("sched_greedy")
+        return _lower(plans[layer], n, STAGE_GROUP, 0)
+
+
+def diagonal_runs(prims) -> tuple[list, list]:
+    """Each run of consecutive prims on at most 2 qubits whose product is
+    diagonal (``core.gates.is_diagonal``'s 1e-12) as one diagonal prim
+    carrying that product: qelib1's cz (h, cx, h) and cu1 (u1, cx, u1, cx,
+    u1). At each position the longest such run is taken, else the prim
+    stays as it is. A run starts at a prim that is not diagonal: a run
+    that starts at a diagonal prim is that prim and a run found at the next
+    one. Returns (prims, the runs: each a tuple of the prims it took)."""
+    prims = list(prims)
+    out: list = []
+    runs: list = []
+    i = 0
+    while i < len(prims):
+        p = prims[i]
+        if p.diag or len(p.targets) > 2:
+            out.append(p)
+            i += 1
+            continue
+        pair = list(p.targets)
+        prod = _times(_EYE4, p, pair)
+        found = None
+        diag = False
+        for j in range(i + 1, len(prims)):
+            q = prims[j]
+            new = [t for t in q.targets if t not in pair]
+            if len(pair) + len(new) > 2:
+                break
+            pair += new
+            prod = _times(prod, q, pair)
+            # a diagonal prim leaves a product that is not diagonal so
+            diag = (diag or not q.diag) and np.abs(prod[_OFF_DIAGONAL]).max() <= 1e-12
+            if diag:
+                found = j + 1, tuple(pair), prod
+        if found is None:
+            out.append(p)
+            i += 1
+            continue
+        end, targets, prod = found
+        d = np.diag(prod)
+        # a run on one qubit is that qubit's gate tensored with the identity
+        out.append(Prim(d[::2].copy() if len(targets) == 1 else d.copy(), targets, True))
+        runs.append(tuple(prims[i:end]))
+        i = end
+    return out, runs
+
+
+def _times(m: np.ndarray, p: Prim, pair: list) -> np.ndarray:
+    """p applied after m, a 4x4 product on the qubits ``pair`` (pair[0] the
+    high bit of its index, pair[1] the low one, or a qubit not named yet)."""
+    t, u = p.targets, p.u
+    if len(t) == 1:
+        high = t[0] == pair[0]
+        if p.diag:
+            return u[_HIGH_BIT if high else _LOW_BIT][:, None] * m
+        if high:
+            return (u @ m.reshape(2, 8)).reshape(4, 4)
+        return (u @ m.reshape(2, 2, 4)).reshape(4, 4)
+    if t[0] != pair[0]:
+        u = u[_SWAP_BITS] if p.diag else u[_SWAP_BITS][:, _SWAP_BITS]
+    return u[:, None] * m if p.diag else u @ m
+
+
+def layered(prims, n: int) -> list:
+    """The prims in as-soon-as-possible layers under commutation: a diagonal
+    prim joins the first diagonal layer after the last non-diagonal prim
+    on any of its qubits (diagonals commute with each other), any other
+    prim the first non-diagonal layer after every earlier prim on its
+    qubits; a layer opens at the end where none is found. Only commuting
+    prims change places, so the product is the same. A non-diagonal
+    layer's row 1-qubit gates come first, by qubit (Layer1QOp chunks),
+    then its other gates, those in the lane block last (one lane block)."""
+    b_lane = max(n - _apply._COL, 0)
+    layers: list[list] = []
+    starts = ([], [])  # the indices of the non-diagonal and the diagonal layers
+    last_any: dict[int, int] = {}
+    last_dense: dict[int, int] = {}
+    for p in prims:
+        seen = last_dense if p.diag else last_any
+        after = max((seen.get(q, -1) for q in p.targets), default=-1)
+        same = starts[p.diag]
+        k = bisect.bisect_right(same, after)
+        if k == len(same):
+            same.append(len(layers))
+            layers.append([])
+        at = same[k]
+        layers[at].append(p)
+        for q in p.targets:
+            last_any[q] = max(last_any.get(q, -1), at)
+            if not p.diag:
+                last_dense[q] = at
+
+    def order(p):
+        t = p.targets
+        if all(q >= b_lane for q in t):
+            return 2, min(t)
+        return (0 if len(t) == 1 else 1), min(t)
+
+    out: list = []
+    for layer in layers:
+        out += layer if layer[0].diag else sorted(layer, key=order)
+    return out
+
+
+def _pass_cost(blocks: list, n: int, whole: dict | None = None) -> float:
+    """The passes :func:`_lower` makes of a plan of :func:`_blocks`, from
+    targets alone, a lane pass weighing LANE_PASS_COST. A _Block is taken
+    as diagonal where each of its prims is diagonal or in a diagonal run
+    that the block holds whole (``whole``: id of a prim -> the ids of its
+    run's prims). Runs of bit permutations are not seen."""
+    whole = whole or {}
+    b_lane = max(n - _apply._COL, 0)
+    cost = 0.0
+    prev_diag = False
+    stage_q = stages = 0  # the open stage group's last qubit and its size
+    for b in blocks:
+        diag = isinstance(b, Prim)
+        if isinstance(b, _Block):
+            ids = {id(p) for p in b.prims}
+            diag = all(p.diag or (id(p) in whole and whole[id(p)] <= ids) for p in b.prims)
+        if diag:
+            cost += not prev_diag  # consecutive diagonals are one layer
+            prev_diag, stages = True, 0
+            continue
+        prev_diag = False
+        if isinstance(b, StageOp):
+            if 0 < stages < STAGE_GROUP and b.q == stage_q + 1:
+                stages += 1
+            else:
+                cost, stages = cost + 1, 1
+            stage_q = b.q
+            continue
+        stages = 0
+        cost += LANE_PASS_COST if isinstance(b, _Block) and b.targets[0] >= b_lane else 1
+    return cost
+
+
 def split_op_virtual(op, v: int):
     """Specialize one fused op on v + m qubits, whose first v qubits are
     bank bits, for each of the 2^v banks. Returns ("per_shard", [op for
@@ -455,11 +669,12 @@ def plan(op, n: int, device="cpu"):
 
 
 def apply_prims_fused(state, prims, n: int):
-    """Apply a run of prims to an n-qubit state in place, one kernel pass
-    per fused op; counts the prims under ``prims`` and the fused ops under
-    ``fused_ops`` (``utils.profiling.counters``). Returns the state."""
+    """Apply an interpreter flush's prims to an n-qubit state in place, one
+    kernel pass per op of :func:`fuse_scheduled`; counts the prims under
+    ``prims`` and the fused ops under ``fused_ops``
+    (``utils.profiling.counters``). Returns the state."""
     prims = list(prims)
-    ops = fuse(prims, n, MAX_BLOCK)
+    ops = fuse_scheduled(prims, n, MAX_BLOCK)
     profiling.count("prims", len(prims))
     profiling.count("fused_ops", len(ops))
     for op in ops:
@@ -478,16 +693,20 @@ class CompiledCircuit:
     vector of device memory).
 
     ``optimize=False`` gives one op per prim (a dense block or a one-factor
-    diagonal layer). A dense prim on more than 4 targets that leaves the
+    diagonal layer); ``scheduled=True`` fuses by :func:`fuse_scheduled`, as
+    the QASM routes do. A dense prim on more than 4 targets that leaves the
     lane block has no kernel: construction raises ValueError.
     """
 
     def __init__(self, n: int, prims, max_block: int = DEFAULT_MAX_BLOCK,
-                 optimize: bool = True, stage_group: int | None = None):
+                 optimize: bool = True, stage_group: int | None = None,
+                 scheduled: bool = False):
         self.n = n
         self.prims = tuple(prims)
         self.device = _apply.device()
-        if optimize:
+        if scheduled:
+            self.ops = fuse_scheduled(self.prims, n, max_block)
+        elif optimize:
             self.ops = fuse(self.prims, n, max_block, stage_group)
         else:
             self.ops = [_prim_sorted_diag(p) if p.diag else DenseOp(*_prim_sorted_dense(p))

@@ -199,7 +199,7 @@ class CompiledProgram:
         if key not in self._segments:
             from ..utils.profiling import vlog
 
-            circ = CompiledCircuit(self.n, ev.prims, self.max_block)
+            circ = CompiledCircuit(self.n, ev.prims, self.max_block, scheduled=True)
             vlog(f"segment: {circ.stats()}")
             self._segments[key] = circ
         return self._segments[key]

@@ -40,7 +40,10 @@ VERBOSE = False
 #: events since the last ``ops.kernels.reset_launches()``: ``syncs`` (copies
 #: across the host/device boundary, ``ops.apply.to_device`` / ``to_host``),
 #: ``prims`` and ``fused_ops`` (what each interpreter flush hands to
-#: ``ops.fusion.fuse`` and gets back), ``rho_unitary_passes``,
+#: ``ops.fusion.fuse_scheduled`` and gets back), ``sched_layered`` and
+#: ``sched_greedy`` (QASM flushes and ``--compile`` segments whose layered or
+#: greedy plan was kept) and ``diag_runs`` (the runs of prims made into one
+#: diagonal in the layered plans kept), ``rho_unitary_passes``,
 #: ``rho_channel_passes`` and ``rho_fused_passes`` (passes over a density
 #: matrix, ``core.density``: a gate's rows or columns, a channel, a composed
 #: run of gates and channels) and ``rho_fused_prims`` (the gates of those runs)
@@ -49,8 +52,8 @@ counters: dict[str, int] = {}
 #: the counters the --verbose line always reports, and those it reports
 #: where they rose in the program
 _REPORTED = ("syncs", "prims", "fused_ops")
-_REPORTED_IF_ANY = ("rho_unitary_passes", "rho_channel_passes", "rho_fused_passes",
-                    "rho_fused_prims")
+_REPORTED_IF_ANY = ("sched_greedy", "sched_layered", "diag_runs", "rho_unitary_passes",
+                    "rho_channel_passes", "rho_fused_passes", "rho_fused_prims")
 
 #: host seconds in each span name while VERBOSE, in the current program
 span_s: dict[str, float] = {}

@@ -21,6 +21,7 @@ from qubism_torch.config import config  # noqa: E402
 from qubism_torch.core.gates import Prim  # noqa: E402
 from qubism_torch.ops import apply, fusion, kernels  # noqa: E402
 from qubism_torch.qasm.parser import parse_openqasm  # noqa: E402
+from qubism_torch.run.compiler import elaborate  # noqa: E402
 from qubism_torch.run.interpreter import run_program  # noqa: E402
 from qubism_torch.run.noisy import group_runs  # noqa: E402
 from qubism_torch.utils import profiling  # noqa: E402
@@ -105,9 +106,8 @@ def test_a_file_opens_every_span_nested_in_its_caller():
     assert sum(name == "qubism.plan" for name, _, _ in spans) == profiling.counters["fused_ops"]
 
 
-def test_counters_of_a_flush_are_its_prims_and_fused_ops():
+def _random_flush():
     rng = np.random.default_rng(5)
-    n = 9
     prims = []
     for q in (0, 3, 5, 8, 2, 7):
         a, b = rng.normal(size=2)
@@ -116,10 +116,40 @@ def test_counters_of_a_flush_are_its_prims_and_fused_ops():
     prims.append(Prim(np.diag([1, 1, 1, -1]).astype(complex), (1, 4)))
     prims.append(Prim(np.eye(4)[[0, 1, 3, 2]].astype(complex), (6, 2)))
     prims.append(Prim(np.array([1, np.exp(0.4j)]), (5,), True))
+    return 9, prims
+
+
+def _boixo_flush():
+    """The benchmark's random circuit at 2 x 5, whose plan is layered."""
+    cfg = {"lattice": [2, 5], "num_qubits": 10, "cz_depth": 12}
+    text = boixo.text(cfg, boixo.draw(cfg, 4))
+    n, events, *_ = elaborate(parse_openqasm(os.path.join(ROOT, "qbench", "program.qasm"), text))
+    return n, list(events[0].prims)
+
+
+def _chain_flush():
+    """A chain of cx after an h, each followed by a rotation: no layer
+    holds two of its gates, so the greedy plan is kept."""
+    n, prims = 9, [Prim(np.array([[1, 1], [1, -1]]) / np.sqrt(2), (0,))]
+    for q in range(n - 1):
+        prims.append(Prim(np.eye(4)[[0, 1, 3, 2]].astype(complex), (q, q + 1)))
+        prims.append(Prim(np.array([[np.cos(q), -np.sin(q)], [np.sin(q), np.cos(q)]]), (q,)))
+    return n, prims
+
+
+@pytest.mark.parametrize("flush,plan", [
+    (_random_flush, {"sched_layered": 1}),
+    (_boixo_flush, {"sched_layered": 1, "diag_runs": 26}),
+    (_chain_flush, {"sched_greedy": 1}),
+])
+def test_counters_of_a_flush_are_its_prims_and_fused_ops(flush, plan):
+    n, prims = flush()
+    ops = fusion.fuse_scheduled(prims, n, fusion.MAX_BLOCK)
+    assert profiling.counters == plan
+    kernels.reset_launches()
     state = apply.zero_state(n)
     fusion.apply_prims_fused(state, prims, n)
-    ops = fusion.fuse(prims, n, fusion.MAX_BLOCK)
-    assert profiling.counters == {"prims": len(prims), "fused_ops": len(ops)}
+    assert profiling.counters == {"prims": len(prims), "fused_ops": len(ops), **plan}
     assert 1 < len(ops) < len(prims)
 
 
@@ -174,7 +204,7 @@ def test_verbose_prints_one_line_a_program(monkeypatch, capsys):
         assert f"{name} " in lines[0]
     assert "qubism.sample" not in lines[1]
     ops = profiling.counters["fused_ops"] // 2
-    assert lines[0].endswith(f"syncs 0, prims {PRIMS}, fused_ops {ops}")
+    assert lines[0].endswith(f"syncs 0, prims {PRIMS}, fused_ops {ops}, sched_greedy 1")
     assert profiling.span_s == {}
 
 
