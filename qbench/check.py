@@ -4,6 +4,9 @@ Every amplitude number is the worst error of an amplitude, in units of the
 root-mean-square amplitude 2^(-n/2), after the program's state is turned by
 the one global phase that best aligns it with the reference's (a global
 phase is no observable, and the reference takes OpenQASM's U without one).
+A family's numbers (a value, a gradient) are compared as they are against
+its plain reference's, and shots against the distribution the family says
+they are drawn from (by default |amplitude|^2 of the reference's vector).
 """
 
 from __future__ import annotations
@@ -52,77 +55,124 @@ def parse_counts(text: str) -> dict[str, int]:
     return {bits: int(c) for bits, c in _COUNT_LINE.findall(text)}
 
 
-def xeb_gap(counts: dict[str, int], ref: torch.Tensor) -> float:
-    """|r - 1|, r the mean reference probability of the program's shots over
-    its expectation under the reference (sum of p^2): 1 for shots drawn from
-    the reference's distribution, about 1/2 for shots drawn without regard to
-    it from a scrambled state."""
+def distribution(family, cfg: dict, ref: torch.Tensor) -> torch.Tensor:
+    """The distribution the program's shots are drawn from, given the
+    reference's vector: the family's ``probs`` where it has one, else
+    |ref|^2 in float64."""
+    probs = getattr(family, "probs", None)
+    return probs(cfg, ref) if probs is not None else ref.abs().double().square_()
+
+
+def xeb_gap(counts: dict[str, int], probs: torch.Tensor) -> float:
+    """|r - 1|, r the mean probability under ``probs`` of the program's
+    shots over its expectation under ``probs`` (sum of p^2): 1 for shots
+    drawn from that distribution, about 1/2 for shots drawn without regard
+    to it from a scrambled state."""
     shots = sum(counts.values())
-    idx = torch.tensor([int(b, 2) for b in counts], dtype=torch.int64, device=ref.device)
-    c = torch.tensor(list(counts.values()), dtype=torch.float64, device=ref.device)
-    p = ref[idx].abs().double().square()
-    mean_p = float((c * p).sum()) / shots
-    second = sum(float(ref[s:s + _BLOCK].abs().double().square().square().sum())
-                 for s in range(0, ref.numel(), _BLOCK))
+    idx = torch.tensor([int(b, 2) for b in counts], dtype=torch.int64, device=probs.device)
+    c = torch.tensor(list(counts.values()), dtype=torch.float64, device=probs.device)
+    mean_p = float((c * probs[idx].double()).sum()) / shots
+    second = sum(float(probs[s:s + _BLOCK].double().square().sum())
+                 for s in range(0, probs.numel(), _BLOCK))
     return abs(mean_p / second - 1)
 
 
-def judge(ctx, entry, params: list, outcomes: list, seed: int) -> tuple[int, dict]:
-    """(programs failed, {number: {"value", "limit"}}) for one window.
+def numbers_err(got: dict, want: dict) -> float:
+    """The worst over names of max|a - r| / max(1, max|r|): ``got`` the
+    program's numbers, ``want`` the reference's, of the same names and
+    shapes."""
+    errs = []
+    for name, r in want.items():
+        r = np.asarray(r, dtype=np.float64)
+        d = np.abs(np.asarray(got[name], dtype=np.float64) - r)
+        errs.append(d.max(initial=0) / max(1.0, np.abs(r).max(initial=0)))
+    return float(np.max(errs, initial=0))  # a NaN anywhere reads NaN
 
-    A program failed when it raised, returned another exit code than 0,
-    left no state of the cell's width, or printed counts that do not add up
-    to the cell's shots. The numbers, each compared where the cell's
-    ``check.limits`` names it:
+
+def _same_form(got: dict | None, want: dict) -> bool:
+    return got is not None and set(got) == set(want) and all(
+        np.shape(got[k]) == np.shape(want[k]) for k in want)
+
+
+def judge(ctx, entry, params: list, outcomes: list, seed: int) -> tuple[list[str], dict]:
+    """(a line for each program that failed, {number: {"value", "limit"}})
+    for one window.
+
+    A program failed when it raised or returned another exit code than 0;
+    where ``amps_err`` or ``state_err`` is among the cell's limits, when it
+    left no state; where ``numbers_err`` is, when it left no numbers of the
+    reference's names and shapes; and where the cell takes shots, when its
+    counts do not add up to them. The numbers, each computed only where the
+    cell's ``check.limits`` names it:
 
     * ``amps_err``: the fingerprints (the run's sampled amplitudes) of every
       program against the family's closed form where it has one, and of one
       program drawn from the seed and the last one against the reference;
     * ``state_err``: every amplitude of the last program's final state
       against the reference;
-    * ``xeb_gap``: :func:`xeb_gap` of the shots of those two programs.
+    * ``xeb_gap``: :func:`xeb_gap` of the shots of those two programs, on
+      :func:`distribution` of the reference's vector;
+    * ``numbers_err``: :func:`numbers_err` of those two programs' numbers
+      against the family's ``numbers``.
 
-    The last program's state is copied to the host and every state of the
-    program freed before the reference runs on the card."""
+    The reference's vector (``simulate`` of the family's gate list) is made
+    only for the first three. The last program's state is copied to the
+    host and every state of the program freed before a reference runs."""
     from .harness import seed_of
     from .reference import simulate
 
     n, cfg, family = ctx.n, ctx.cfg, ctx.family
+    limits = ctx.cell.spec["check"]["limits"]
     shots = ctx.traffic.get("shots")
-    counts, failed = [], 0
-    for o in outcomes:
-        c = parse_counts(o.text) if shots and o.text is not None else None
-        failed += bool(o.rc != 0 or o.fp is None
-                       or (shots and (not c or sum(c.values()) != shots)))
-        counts.append(c)
-    done = [i for i, o in enumerate(outcomes) if o.fp is not None]
+    states = "amps_err" in limits or "state_err" in limits
+    counts = [parse_counts(o.text) if shots and o.text is not None else None
+              for o in outcomes]
+    done = [i for i, o in enumerate(outcomes) if o.fp is not None] if states else []
     fps = dict(zip(done, torch.stack([outcomes[i].fp for i in done]).cpu().numpy())) \
         if done else {}
-    idx = ctx.idx.cpu().numpy()
     last = len(outcomes) - 1
-    answer = entry.answer() if last in fps else None
+    answer = entry.answer() if "state_err" in limits and last in fps else None
     host = answer.cpu().numpy() if answer is not None else None
     del answer
-    entry.release()
+    if hasattr(entry, "release"):
+        entry.release()
     for o in outcomes:
         o.fp = None
 
-    amps, xeb, state = [], [], None
+    found = {name: [] for name in ("amps_err", "state_err", "xeb_gap", "numbers_err")}
+    want = None
     closed = getattr(family, "closed_form", None)
-    if closed is not None:
-        amps += [amps_err(fp, closed(cfg, params[i], idx), n) for i, fp in fps.items()]
+    if closed is not None and "amps_err" in limits:
+        idx = ctx.idx.cpu().numpy()
+        found["amps_err"] += [amps_err(fp, closed(cfg, params[i], idx), n)
+                              for i, fp in fps.items()]
     if outcomes:
         j = int(np.random.default_rng(seed_of(seed, 4)).integers(0, len(outcomes)))
         for i in sorted({j, last}):
-            ref = simulate(n, family.gates(cfg, params[i]), ctx.device)
-            if i in fps:
-                amps.append(amps_err(fps[i], ref[ctx.idx].cpu().numpy(), n))
-            if i == last and host is not None:
-                state = state_err(host, ref, n)
-            if counts[i]:
-                xeb.append(xeb_gap(counts[i], ref))
-            del ref
-    numbers = {"amps_err": max(amps) if amps else None, "state_err": state,
-               "xeb_gap": max(xeb) if xeb else None}
-    return failed, {name: {"value": numbers.get(name), "limit": limit}
-                    for name, limit in ctx.cell.spec["check"]["limits"].items()}
+            if states or "xeb_gap" in limits:
+                ref = simulate(n, family.gates(cfg, params[i]), ctx.device)
+                if i in fps and "amps_err" in limits:
+                    found["amps_err"].append(amps_err(fps[i], ref[ctx.idx].cpu().numpy(), n))
+                if i == last and host is not None:
+                    found["state_err"].append(state_err(host, ref, n))
+                if counts[i] and "xeb_gap" in limits:
+                    found["xeb_gap"].append(xeb_gap(counts[i], distribution(family, cfg, ref)))
+                del ref
+            if "numbers_err" in limits:
+                want = family.numbers(cfg, params[i], ctx.device)
+                if _same_form(outcomes[i].numbers, want):
+                    found["numbers_err"].append(numbers_err(outcomes[i].numbers, want))
+
+    failures = []
+    for i, o in enumerate(outcomes):
+        why = (f"rc {o.rc} {o.error or ''}" if o.rc != 0
+               else "no state" if states and i not in fps
+               else "no numbers of the reference's names and shapes"
+               if want is not None and not _same_form(o.numbers, want)
+               else f"counts not adding up to {shots} shots"
+               if shots and (not counts[i] or sum(counts[i].values()) != shots)
+               else None)
+        if why:
+            failures.append(f"program {i}: {why} {(o.text or '')[-400:]}")
+    return failures, {name: {"value": float(np.max(found[name])) if found.get(name) else None,
+                             "limit": limit} for name, limit in limits.items()}

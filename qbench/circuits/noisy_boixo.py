@@ -15,6 +15,7 @@ T, with its elaborated U and CX and the channels after each, as one dense
 gate on (T, T + n), the product of their superoperators (U as U (x)
 conj(U), a channel as sum_i K_i (x) conj(K_i)): 4 x 4 for a single-qubit
 gate, 16 x 16 for a cz. One pass over vec(rho) for each gate of the text.
+The shots are drawn from rho's diagonal (:func:`probs`).
 """
 
 from __future__ import annotations
@@ -110,3 +111,11 @@ def gates(cfg: dict, p: dict) -> list:
         total[np.abs(total) < 1e-15] = 0  # what cancels exactly is left out
         out.append((total, support + tuple(t + n for t in support), False))
     return out
+
+
+def probs(cfg: dict, ref):
+    """The distribution the shots are drawn from: the real part of rho's
+    diagonal, entries x * (2^q + 1) of vec(rho) for q = ``qubits``, the
+    row index in the top q bits."""
+    d = 1 << cfg["qubits"]
+    return ref.view(d, d).diagonal().real

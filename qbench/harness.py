@@ -15,6 +15,31 @@ program's inputs are drawn from the run's seed and its index before its
 clock starts. Set-up is the process's start until the window opens: imports,
 the card, the kernel library and native lexer from the checkout's build
 cache, the entry's own set-up and one warm program of the cell's shapes.
+
+A family (``qbench/circuits/<family>.py``) defines ``draw(cfg, seed)``, a
+program's parameters from its seed, and whichever of these its entries and
+its check use (an entry may read more: ``entries/compiled.py`` reads
+``body`` and ``basis``):
+
+* ``text(cfg, p)``: the program as OpenQASM 2.0, for the file entries;
+* ``gates(cfg, p)``: its gate list from |0...0>, ``[(u, targets, diag)]``,
+  for the plain reference ``qbench.reference.simulate``; needed where the
+  cell's limits name ``amps_err``, ``state_err`` or ``xeb_gap``;
+* ``closed_form(cfg, p, idx)``: its final amplitudes at ``idx``, held
+  against every program's fingerprint under ``amps_err``;
+* ``numbers(cfg, p, device, tf32=False)``: the plain reference's values of
+  what the program returns, ``{name: np.ndarray}``, for ``numbers_err``;
+  plain PyTorch or NumPy, nothing of the program; with ``tf32`` every
+  product's inputs rounded to TF32, as ``simulate(..., tf32=True)`` does;
+* ``probs(cfg, ref)``: the distribution the shots are drawn from, given
+  the reference's vector; |ref|^2 where it has none.
+
+An entry (``qbench/entries/<entry>.py``) has ``make(ctx)``, whose object
+has ``prepare(p, seed)`` (outside the clock) and ``program(inputs) ->
+Outcome``; where the cell checks ``state_err``, ``answer()``, the last
+program's final state; and optionally ``release()``, which frees the
+entry's memory before the references run. ``qbench/check.py`` says what is
+compared and when a program counts as failed.
 """
 
 from __future__ import annotations
@@ -97,9 +122,12 @@ def seed_of(seed: int, *keys: int) -> int:
     return (int(s[0]) << 31) ^ int(s[1])
 
 
-def fingerprint_indices(cell: Cell, seed: int) -> np.ndarray:
+def fingerprint_indices(cell: Cell, seed: int) -> np.ndarray | None:
     """The sorted basis indices, drawn from the run's seed, at which every
-    program's final state is kept for the check."""
+    program's final state is kept for the check; None for a cell that names
+    no ``fingerprint``."""
+    if "fingerprint" not in cell.spec["check"]:
+        return None
     k = min(cell.spec["check"]["fingerprint"], 1 << cell.n)
     rng = np.random.default_rng(seed_of(seed, 3))
     return np.sort(rng.choice(1 << cell.n, k, replace=False))
@@ -107,13 +135,16 @@ def fingerprint_indices(cell: Cell, seed: int) -> np.ndarray:
 
 @dataclass
 class Outcome:
-    """What one program returned: its exit code, what it printed, and a
-    fingerprint of its final state (its amplitudes at the run's indices)."""
+    """What one program returned: its exit code, what it printed (its
+    counts, where the cell takes shots), a fingerprint of its final state
+    (its amplitudes at the run's indices, on the device) and its numbers
+    (host arrays by name, such as ``{"value": (1,), "grad": (P,)}``)."""
 
     rc: int
     text: str | None = None
     fp: object = None
     error: str | None = None
+    numbers: dict[str, np.ndarray] | None = None
 
 
 @dataclass
@@ -165,7 +196,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     ctx = Context(cell, dev, traffic=cell.spec.get("traffic", {}))
-    ctx.idx = torch.from_numpy(fingerprint_indices(cell, seed)).to(dev)
+    idx = fingerprint_indices(cell, seed)
+    ctx.idx = torch.from_numpy(idx).to(dev) if idx is not None else None
     entry = cell.entry.make(ctx)
 
     def draw(i: int):
@@ -213,12 +245,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         if value is not None and math.isfinite(value):
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
 
-    bad = next((o for o in outcomes if o.rc != 0 or o.fp is None), None)
-    if bad is not None:
-        print(f"qbench: a failed program: rc {bad.rc} {bad.error or ''} "
-              f"{(bad.text or '')[-400:]}", file=sys.stderr)
     t_check = time.perf_counter()
-    failed, checks = judge(ctx, entry, params, outcomes, seed)
+    failures, checks = judge(ctx, entry, params, outcomes, seed)
+    failed = len(failures)
+    if failures:
+        print(f"qbench: {failed} failed programs; the first: {failures[0]}", file=sys.stderr)
     for c in checks.values():  # JSON has no NaN: a number that is not finite reads null
         if c["value"] is not None and not math.isfinite(c["value"]):
             c["value"] = None
