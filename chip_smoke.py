@@ -295,6 +295,8 @@ KERNELS = {
     "butterfly": ("qubism_torch/csrc/butterfly.cu", "qubism_tpu/ops/kernels.py:944"),
     "permute": ("qubism_torch/csrc/permute.cu",
                 "none: the JAX package's swaps are gate passes (ops/fusion.py)"),
+    "pair": ("qubism_torch/csrc/pair.cu",
+             "none: the JAX package's pair reductions are plain XLA (ops/measure.py)"),
     "probe_stream": ("qubism_torch/csrc/probe_stream.cu",
                      "experiments/bw_probe.py:50, :157, :220, :573 (P1, P3, P5, P11)"),
     "probe_copy": ("qubism_torch/csrc/probe_stream.cu", "experiments/bw_probe.py:81 (P2)"),
@@ -990,6 +992,57 @@ def phase_permute(report):
                 f"{bound_ms / kms:.1%} of it; copy_ {bound_ms / cms:.1%})")
         del s, dst
         torch.cuda.empty_cache()
+
+
+def phase_pair(report):
+    """The pair kernel against its plain version (the chunk walk of
+    ``ops.measure``) at n = 1, 3, 9, 12, N_CHECK and N_QFT: one, two, 42
+    (QAOA-28's cost layer) and 300 sign masks (two launches), each with no
+    flip on a state against itself, a random flip and a flip of the lowest
+    bit; then timed at N_QFT with one and 42 masks beside the walk, against
+    the bound of reading both states once."""
+    import numpy as np
+    import torch
+
+    from qubism_torch.ops import kernels as K
+    from qubism_torch.ops import measure as M
+    from qubism_torch.ops import probes as P
+
+    rng = np.random.default_rng(2031)
+    worst = 0.0
+    for n in (1, 3, 9, 12, N_CHECK, N_QFT):
+        a, b = rand_state(n, 800 + n), rand_state(n, 900 + n)
+        for k in (1, 2, 42, 300):
+            zs = [int(z) for z in rng.integers(0, 1 << n, size=k)]
+            for f, y in ((0, a), (int(rng.integers(0, 1 << n)), b), (1, b)):
+                out = torch.zeros(k, 2, dtype=torch.float64, device=DEV)
+                K.pair_sums(a, y, f, zs, out, n)
+                # normalized states: every sum is at most 1 in magnitude
+                err = float(np.abs(out.cpu().numpy() - M.pair_walk(a, y, n, f, zs)).max())
+                worst = max(worst, err)
+                check(err < 1e-6, f"pair differs from its plain version by {err:.3g} "
+                      f"at n={n} k={k} f={f}")
+        del a, b
+        torch.cuda.empty_cache()
+    report["pair"]["max_abs_err"] = worst
+    log(f"kernel pair: max abs err {worst:.3g} against the walk (n = 1..{N_QFT})")
+    if DEV != "cuda":
+        return
+    n = N_QFT
+    a, b = rand_state(n, 1), rand_state(n, 2)
+    bound_ms, bound_by = P.bound(16 * (1 << n), 0)
+    for k in (1, 42):
+        zs = [int(z) for z in rng.integers(0, 1 << n, size=k)]
+        out = torch.zeros(k, 2, dtype=torch.float64, device=DEV)
+        f = 1 << 3
+        kms = time_ms(lambda _: K.pair_sums(a, b, f, zs, out, n), None)
+        wms = time_ms(lambda _: M.pair_walk(a, b, n, f, zs), None, reps=2)
+        if k == 1:
+            report["pair"].update(ms=kms, plain_ms=wms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"time n={n} pair k={k}: kernel {kms:.4f} ms, walk {wms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / kms:.1%} of it)")
+    del a, b
+    torch.cuda.empty_cache()
 
 
 def phase_butterfly(report):
@@ -3605,6 +3658,7 @@ def main() -> int:
     phase_device_operands(report)
     phase_butterfly(report)
     phase_permute(report)
+    phase_pair(report)
     phase_probe_kernels(report)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 

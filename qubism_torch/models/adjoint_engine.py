@@ -24,7 +24,10 @@ lam) pair at the unit's boundary: every op of a unit commutes with the
 others and with their generators, so each parameter's ``2 s Im <lam|G
 phi>`` needs no un-apply inside the unit; a unit's generator terms are
 grouped by flip mask and each group is one :func:`ops.measure.pauli_pair_sums`
-walk of the two states (float64 sums on the host).
+walk of the two states (on a card, one pass of the pair kernel), whose
+float64 sums are added into one buffer on the device and read back once a
+call; the walks and the buffer's slots are planned once per engine
+(:func:`contraction_plan`).
 
 What the JAX engine carries for the TPU is not ported: traced diag tables
 on the canonical (R, 2048) layout, the straddle-term and axis-slot caps,
@@ -43,6 +46,7 @@ from ..ops import apply as A
 from ..ops import kernels
 from ..ops import measure as M
 from ..ops.fusion import MAX_BLOCK, DenseOp, DiagLayer, plan
+from ..utils import profiling
 from .variational import _GEN, _KIND, PGate, _check_terms, _gen_terms, _host_theta, _op_matrix
 
 # ---------------------------------------------------------------------------
@@ -136,9 +140,11 @@ def unit_calls(unit, theta: np.ndarray, n: int, device, dag: bool = False) -> li
 
 def apply_unit(state: torch.Tensor, unit, theta: np.ndarray, n: int,
                dag: bool = False) -> torch.Tensor:
-    """A unit (or its dagger) applied to ``state`` in place."""
-    for name, args in unit_calls(unit, theta, n, state.device, dag):
-        getattr(kernels, name)(state, *args, n)
+    """A unit (or its dagger) applied to ``state`` in place: its operands
+    built and its kernels launched in a ``qubism.adjoint.sweep`` span."""
+    with profiling.span("qubism.adjoint.sweep"):
+        for name, args in unit_calls(unit, theta, n, state.device, dag):
+            getattr(kernels, name)(state, *args, n)
     return state
 
 
@@ -161,44 +167,74 @@ def predicted_launches(ansatz) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def unit_grad(phi: torch.Tensor, lam: torch.Tensor, unit, n: int, g: np.ndarray):
-    """Add a unit's gradient contributions into ``g`` (float64) from the
-    (phi, lam) pair at the unit's after boundary: ``2 s Im <lam|P phi>``
-    per generator term, one :func:`ops.measure.pauli_pair_sums` walk per
-    flip mask (which gives <lam|P|phi> without its i^{#Y})."""
-    entries = [(op.pidx[0], op.scale * coef, pauli) for op in unit[1] if isinstance(op, PGate)
-               for coef, pauli in _gen_terms(op, n)]
-    if not entries:
+#: log2 of the chunk of the state that :func:`diag_head` builds its weights
+#: for at a time: 2^28 float32 weights (1 GiB) a chunk
+_HEAD_CHUNK = 28
+
+
+def contraction_plan(units, n: int):
+    """The gradient walks of the reverse sweep, built once per engine: for
+    each unit, last first, its walks ``[(flip mask, sign masks, first
+    slot)]`` (its generator terms grouped by flip mask, one
+    :func:`ops.measure.pauli_pair_sums` walk a group), and for each slot of
+    the sums' buffer ``(parameter index, scale * coefficient, #Y)``, in the
+    order the walks fill the slots."""
+    walks, slots = [], []
+    for unit in reversed(units):
+        entries = [(op.pidx[0], op.scale * coef, pauli) for op in unit[1]
+                   if isinstance(op, PGate) for coef, pauli in _gen_terms(op, n)]
+        paulis = [p for _, _, p in entries]
+        mine = []
+        for f, idxs in M.group_terms(paulis).items():
+            mine.append((f, [M.pauli_masks(paulis[j])[1] for j in idxs], len(slots)))
+            slots += [(entries[j][0], entries[j][1], paulis[j].count("Y")) for j in idxs]
+        walks.append(mine)
+    return walks, slots
+
+
+def unit_walks(phi: torch.Tensor, lam: torch.Tensor, walks, n: int):
+    """Add a unit's ``<lam|P phi>`` sums (without their i^{#Y}) into their
+    slots of the call's float64 sums buffer on phi's device, from the (phi,
+    lam) pair at the unit's after boundary: one
+    :func:`ops.measure.pauli_pair_sums` walk per flip mask of the unit,
+    ``walks`` = [(flip mask, sign masks, the slots' view of the buffer)],
+    in a ``qubism.adjoint.contract`` span. Nothing is read back here."""
+    if not walks:
         return
-    paulis = [p for _, _, p in entries]
-    for f, idxs in M.group_terms(paulis).items():
-        sums = M.pauli_pair_sums(phi, lam, n, f, [M.pauli_masks(paulis[j])[1] for j in idxs])
-        for s, j in zip(sums, idxs):
-            pidx, sc, pauli = entries[j]
-            g[pidx] += 2.0 * sc * M._apply_iy(s.real, s.imag, pauli.count("Y")).imag
+    with profiling.span("qubism.adjoint.contract"):
+        for f, zs, out in walks:
+            M.pauli_pair_sums(phi, lam, n, f, zs, out=out)
+
+
+def add_grads(sums: np.ndarray, slots, g: np.ndarray):
+    """Add ``2 s Im(i^{#Y} <lam|P phi>)`` of every slot into ``g``
+    (float64), from the sums read back from the buffer."""
+    for (pidx, sc, n_y), (re, im) in zip(slots, sums):
+        g[pidx] += 2.0 * sc * M._apply_iy(re, im, n_y).imag
 
 
 def diag_head(phi: torch.Tensor, n: int, checked, constant: float):
     """(E, lam = H phi) for a diagonal H (I/Z strings only): lam(x) = w(x)
     phi(x) with w(x) = sum_j c_j s_j(x), and E = <phi|lam> + constant. w is
-    built one chunk of the state at a time from the row and column sign
-    tables (one small matmul per chunk), never as a 2^n table."""
+    built one chunk of 2^_HEAD_CHUNK indices at a time from the row and
+    column sign tables (one small matmul per chunk), never as a 2^n table;
+    E is one pair sum (``kernels.pair_sums``, float64). The tables' uploads
+    and E's read-back count as ``syncs``."""
     dev = phi.device
     zs = [M.pauli_masks(p)[1] for _, p in checked]
     coefs = np.array([c for c, _ in checked], dtype=np.float64)
-    (_, lr, lc), _, _, srows, scols, shi = M._walk(n, 0, zs, dev)
-    srow = torch.from_numpy(srows.T.astype(np.float32)).to(dev)            # (2^lr, k)
-    scol = torch.from_numpy(scols.astype(np.float32)).to(dev)              # (k, 2^lc)
-    chunk_coefs = torch.from_numpy((shi * coefs[None, :]).astype(np.float32)).to(dev)
+    (_, lr, lc), _, _, srows, scols, shi = M._walk(n, 0, zs, dev, chunk=_HEAD_CHUNK)
+    srow = A.to_device(srows.T.astype(np.float32), dev)            # (2^lr, k)
+    scol = A.to_device(scols.astype(np.float32), dev)              # (k, 2^lc)
+    chunk_coefs = A.to_device((shi * coefs[None, :]).astype(np.float32), dev)
     lam = torch.empty_like(phi)
     pv = phi.view(-1, 1 << lr, 1 << lc)
     lv = lam.view(-1, 1 << lr, 1 << lc)
-    e = torch.zeros((), dtype=torch.float64, device=dev)
     for h in range(pv.shape[0]):
         w = (srow * chunk_coefs[h]) @ scol
         torch.mul(pv[h], w, out=lv[h])
-        e += torch.vdot(pv[h].reshape(-1), lv[h].reshape(-1)).real.double()
-    return float(e) + constant, lam
+    e = kernels.pair_sums(lam, phi, 0, [0], torch.zeros(1, 2, dtype=torch.float64, device=dev), n)
+    return float(A.to_host(e)[0, 0]) + constant, lam
 
 
 def pauli_head(phi: torch.Tensor, n: int, checked, constant: float):
@@ -222,7 +258,12 @@ def kernel_adjoint_value_and_grad_fn(ansatz, terms, constant: float = 0.0,
     ``"kernels"``. Raises ValueError when some op has no kernel lowering
     (``variational.adjoint_value_and_grad_fn(engine="auto")`` routes such
     an ansatz to the plain sweep). ``units_per_chunk`` is the JAX engine's
-    jit chunking and changes nothing here."""
+    jit chunking and changes nothing here.
+
+    A call runs in a ``qubism.adjoint`` span, its head (E and lam = H phi)
+    in ``qubism.adjoint.head``. Its gradient walks add their sums into one
+    float64 buffer on the state's device, read back once at the end of the
+    call (the callable's ``_contract`` is ``"device"``)."""
     del units_per_chunk
     n = ansatz.n
     units = plan_units(ansatz.ops, n)
@@ -232,19 +273,38 @@ def kernel_adjoint_value_and_grad_fn(ansatz, terms, constant: float = 0.0,
                          "more than 4 qubits off the lane block)")
     _, checked = _check_terms(terms, n)
     diagonal = all(set(p) <= set("IZ") for _, p in checked)
+    walks, slots = contraction_plan(units, n)
+    buffers = {}
+
+    def sums_buffer(dev):
+        """The sums buffer on ``dev``, zeroed, and each unit's walks with
+        their views of it, last unit first (made once per device)."""
+        if dev in buffers:
+            buffers[dev][0].zero_()
+        else:
+            sums = torch.zeros(len(slots), 2, dtype=torch.float64, device=dev)
+            buffers[dev] = sums, [[(f, zs, sums[first:first + len(zs)]) for f, zs, first in unit]
+                                  for unit in walks]
+        return buffers[dev]
 
     def vg(theta):
-        th = _host_theta(theta)
-        phi = A.zero_state(n)
-        for unit in units:
-            apply_unit(phi, unit, th, n)
-        e, lam = (diag_head if diagonal else pauli_head)(phi, n, checked, float(constant))
-        g = np.zeros(ansatz.num_params)
-        for unit in reversed(units):
-            unit_grad(phi, lam, unit, n, g)
-            apply_unit(phi, unit, th, n, dag=True)
-            apply_unit(lam, unit, th, n, dag=True)
+        with profiling.span("qubism.adjoint"):
+            th = _host_theta(theta)
+            phi = A.zero_state(n)
+            for unit in units:
+                apply_unit(phi, unit, th, n)
+            with profiling.span("qubism.adjoint.head"):
+                e, lam = (diag_head if diagonal else pauli_head)(phi, n, checked,
+                                                                 float(constant))
+            sums, unit_walk_views = sums_buffer(phi.device)
+            for unit, views in zip(reversed(units), unit_walk_views):
+                unit_walks(phi, lam, views, n)
+                apply_unit(phi, unit, th, n, dag=True)
+                apply_unit(lam, unit, th, n, dag=True)
+            g = np.zeros(ansatz.num_params)
+            add_grads(A.to_host(sums), slots, g)
         return torch.tensor(e, dtype=torch.float32), torch.from_numpy(g.astype(np.float32))
 
     vg._engine = "kernels"
+    vg._contract = "device"
     return vg

@@ -141,8 +141,9 @@ def _apply_unit(shards, unit, theta, d: int, m: int, dag: bool = False):
 
 def _unit_grad(phi, lam, unit, n: int, d: int, g: np.ndarray):
     """Add a unit's gradient contributions into ``g`` (float64) from the
-    sharded (phi, lam) pair at the unit's after boundary (the argument of
-    :func:`.adjoint_engine.unit_grad`)."""
+    sharded (phi, lam) pair at the unit's after boundary (the sharded
+    counterpart of :func:`.adjoint_engine.unit_walks` and
+    :func:`.adjoint_engine.add_grads`)."""
     entries = [(op.pidx[0], op.scale * coef, pauli) for op in unit[1] if isinstance(op, PGate)
                for coef, pauli in _gen_terms(op, n)]
     if not entries:

@@ -108,6 +108,7 @@ def library() -> ctypes.CDLL:
     lib.qk_stage.argtypes = [p, i64, i32, p, p, p, i32, i32, p]
     lib.qk_butterfly.argtypes = [p, i32, i64, p, i32, p]
     lib.qk_permute.argtypes = [p, i64, p, i32, p]
+    lib.qk_pair_sums.argtypes = [p, p, i64, i64, i32, p, p, i32, p]
     lib.qk_probe_read_occupancy.argtypes = [i32, i32, i32, p]
     lib.qk_probe_copy.argtypes = [p, p, i64, i32, i32, i32, i64, i32, i32, i32, p]
     lib.qk_probe_phase.argtypes = [p, p, i64, p, i32, i32, i32, i64, i32, i32, i32, p]
@@ -116,7 +117,8 @@ def library() -> ctypes.CDLL:
     lib.qk_probe_pair.argtypes = [p, p, i64, i32, p, p, p, i32, i32, i32, i32, p]
     for fn in (lib.qk_gate, lib.qk_layer1q, lib.qk_gate_dev, lib.qk_layer1q_dev,
                lib.qk_lane, lib.qk_diag, lib.qk_diag1,
-               lib.qk_stage, lib.qk_butterfly, lib.qk_permute, lib.qk_probe_read_occupancy,
+               lib.qk_stage, lib.qk_butterfly, lib.qk_permute, lib.qk_pair_sums,
+               lib.qk_probe_read_occupancy,
                lib.qk_probe_copy, lib.qk_probe_phase, lib.qk_probe_read, lib.qk_probe_write,
                lib.qk_probe_pair):
         fn.restype = ctypes.c_int

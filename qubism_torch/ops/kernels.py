@@ -1,4 +1,4 @@
-"""The seven state-vector kernels of the engine.
+"""The seven state-vector kernels of the engine, and the pair reduction.
 
 Each kernel has three parts here:
 
@@ -30,6 +30,12 @@ the state's device, chosen there (a trajectory's realized operand, an MCWF
 branch), so a run of launches needs no host copy at all; they count their
 launches under the same names and their plain versions are the same.
 :data:`KERNEL_FNS` maps each kernel name to its (wrapper, plain version).
+
+The pair reduction (:func:`pair_sums`, ``csrc/pair.cu``) reads two states
+and adds the sums of :func:`.measure.pauli_pair_sums` into a float64 tensor
+on their device; its plain version is that function's chunk walk, and it
+counts under ``launches["pair"]``. It updates no state, so it is not in
+:data:`KERNEL_FNS`.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from .apply import _COL, as_operand, canonical_device, target_view, to_device
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {"gate": 0, "diag": 0, "lane": 0, "layer1q": 0, "stage": 0, "butterfly": 0,
-            "permute": 0}
+            "permute": 0, "pair": 0}
 
 #: widest diagonal factor held as a table (2^7 entries: the widest factor
 #: fusion emits, a pure-lane union). Wider factors are split exactly into
@@ -931,6 +937,45 @@ def permute(state: torch.Tensor, perm, n: int) -> torch.Tensor:
     _check_aligned("permute", state)
     return _launch(state, "permute", lambda lib, d, s: lib.qk_permute(
         _ptr(state), n, _host(plan.packed), d, s))
+
+
+# ---------------------------------------------------------------------------
+# The sums of a pair of states (ops.measure.pauli_pair_sums)
+# ---------------------------------------------------------------------------
+
+
+def pair_sums_plain(a: torch.Tensor, b: torch.Tensor, f: int, zs, out: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """:func:`pair_sums` by the chunk walk of :mod:`.measure`, on any device."""
+    from .measure import pair_walk
+
+    return out.add_(to_device(pair_walk(a, b, n, f, zs), out.device))
+
+
+def pair_sums(a: torch.Tensor, b: torch.Tensor, f: int, zs, out: torch.Tensor,
+              n: int) -> torch.Tensor:
+    """Add ``sum_x conj(b[x ^ f]) (-1)^popcount(x & z) a[x]`` for each sign
+    mask z of ``zs`` into ``out``, a float64 (len(zs), 2) tensor of real and
+    imaginary parts on the states' device, in one pass over ``a`` and ``b``
+    (``b`` may be ``a``). Returns ``out``. Unlike the other wrappers it
+    reads the states and writes only ``out``; the order of its float64
+    additions on the card is not fixed."""
+    _check_state(a, n)
+    _check_state(b, n)
+    zs = np.ascontiguousarray([int(z) for z in zs], dtype=np.int64)
+    k = len(zs)
+    if b.device != a.device:
+        raise ValueError(f"pair_sums: the states lie on {a.device} and {b.device}")
+    if (out.device != a.device or out.dtype != torch.float64 or not out.is_contiguous()
+            or tuple(out.shape) != (k, 2)):
+        raise ValueError(f"pair_sums: out must be a contiguous float64 ({k}, 2) tensor on "
+                         f"{a.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
+    if not (k >= 1 and 0 <= f < 1 << n and all(0 <= z < 1 << n for z in zs)):
+        raise ValueError(f"pair_sums: masks must lie in [0, 2^{n}), with at least one sign mask")
+    if a.device.type == "cpu":
+        return pair_sums_plain(a, b, f, zs, out, n)
+    return _launch(out, "pair", lambda lib, d, s: lib.qk_pair_sums(
+        _ptr(a), _ptr(b), n, f, k, _host(zs), _ptr(out), d, s))
 
 
 #: kernel name -> (wrapper, plain version); both take (state, *operands, n),

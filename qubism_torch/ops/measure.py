@@ -19,7 +19,9 @@ import numpy as np
 import torch
 
 from ..config import config
-from .apply import to_host
+from ..utils import profiling
+from . import kernels
+from .apply import to_device, to_host
 
 
 def draw(gen: torch.Generator | None, k: int, uniforms=None) -> np.ndarray:
@@ -293,7 +295,9 @@ def probabilities(state: torch.Tensor) -> torch.Tensor:
 # chunk (a view), the low bits are one gather inside it, and the signs are a
 # row table times a column table over a (rows, cols) view of the chunk, so
 # no state-sized temporary or index tensor is ever made. Every chunk's
-# partial sums are float64.
+# partial sums are float64. On a CUDA device a pair of states on one device
+# is reduced instead by the pair kernel (``kernels.pair_sums``) in one pass,
+# with no table or index uploaded.
 
 #: log2 of the chunk the expectation functions walk a state in
 _EXP_CHUNK = 22
@@ -333,25 +337,26 @@ def _parity_sign(idx: np.ndarray, mask: int) -> np.ndarray:
     return 1.0 - 2.0 * (x & 1).astype(np.float64)
 
 
-def _chunk_shape(n: int) -> tuple[int, int, int]:
-    """(c, lr, lc): a state of n qubits is walked in chunks of 2^c indices,
-    each viewed as (2^lr, 2^lc)."""
-    c = min(n, _EXP_CHUNK)
+def _chunk_shape(n: int, chunk: int | None = None) -> tuple[int, int, int]:
+    """(c, lr, lc): a state of n qubits is walked in chunks of 2^c indices
+    (c at most ``chunk``, default ``_EXP_CHUNK``), each viewed as (2^lr, 2^lc)."""
+    c = min(n, _EXP_CHUNK if chunk is None else chunk)
     lc = min(c, _EXP_COLS)
     return c, c - lc, lc
 
 
-def _walk(n: int, f: int, zs, dev):
+def _walk(n: int, f: int, zs, dev, chunk: int | None = None):
     """What a chunked walk of a 2^n state needs for the flip mask ``f`` and
     the sign masks ``zs``: (c, lr, lc), the flip's chunk part, the gather
-    index of its in-chunk part on ``dev`` (None when it has none), and the
-    float64 sign tables of each mask as numpy arrays: rows (k, 2^lr),
-    columns (k, 2^lc) and chunks (2^(n-c), k)."""
-    c, lr, lc = _chunk_shape(n)
+    index of its in-chunk part on ``dev`` (None when it has none; its upload
+    counts as a sync), and the float64 sign tables of each mask as numpy
+    arrays: rows (k, 2^lr), columns (k, 2^lc) and chunks (2^(n-c), k).
+    ``chunk`` is as :func:`_chunk_shape` takes it."""
+    c, lr, lc = _chunk_shape(n, chunk)
     f_lo = f & ((1 << c) - 1)
     gather = None
     if f_lo:
-        gather = torch.from_numpy(np.arange(1 << c, dtype=np.int64) ^ f_lo).to(dev)
+        gather = to_device(np.arange(1 << c, dtype=np.int64) ^ f_lo, dev)
     ridx = np.arange(1 << lr, dtype=np.int64)
     cidx = np.arange(1 << lc, dtype=np.int64)
     hidx = np.arange(1 << (n - c), dtype=np.int64)
@@ -361,19 +366,51 @@ def _walk(n: int, f: int, zs, dev):
     return (c, lr, lc), f >> c, gather, srows, scols, shi
 
 
-def pauli_pair_sums(a: torch.Tensor, b: torch.Tensor, n: int, f: int, zs) -> np.ndarray:
+def pauli_pair_sums(a: torch.Tensor, b: torch.Tensor, n: int, f: int, zs,
+                    out: torch.Tensor | None = None) -> np.ndarray | None:
     """sum_x conj(b[x ^ f]) s_z(x) a[x] for every sign mask z in ``zs``: a
     host complex128 array of len(zs), without the i^{#Y} factors. ``a`` and
     ``b`` are 2^n complex64 tensors; ``b is a`` for a single state, and a
     partner buffer on the mesh path, which may lie on another device and is
-    then copied over one chunk at a time. All the terms of one flip
-    mask share the partner read and the product; a no-flip group of one
-    state reads |a|^2 once."""
+    then copied over one chunk at a time. With ``out``, a float64
+    (len(zs), 2) tensor on ``a``'s device, the sums' real and imaginary
+    parts are added into it instead and nothing is returned or read back.
+
+    Two states on one CUDA device go through the pair kernel
+    (``kernels.pair_sums``); otherwise the states are walked chunk by chunk
+    (:func:`pair_walk`). Each call counts one ``pair_walks``; its copies
+    between host and device (the walk's sign tables and gather index, the
+    sums' read-back) count as ``syncs``."""
+    profiling.count("pair_walks")
+    zs = [int(z) for z in zs]
+    if a.device.type == "cuda" and b.device == a.device:
+        acc = out if out is not None else torch.zeros(len(zs), 2, dtype=torch.float64,
+                                                      device=a.device)
+        kernels.pair_sums(a, b, f, zs, acc, n)
+        if out is not None:
+            return None
+        s = to_host(acc)
+    else:
+        s = pair_walk(a, b, n, f, zs)
+        if out is not None:
+            out.add_(to_device(s, out.device))
+            return None
+    if b is a and f == 0:
+        return s[:, 0].astype(np.complex128)
+    return s[:, 0] + 1j * s[:, 1]
+
+
+def pair_walk(a: torch.Tensor, b: torch.Tensor, n: int, f: int, zs) -> np.ndarray:
+    """The sums of :func:`pauli_pair_sums` by a walk of the states in chunks
+    of 2^_EXP_CHUNK indices, in torch ops on any device: a float64 (len(zs),
+    2) host array of real and imaginary parts. All the terms of one flip
+    mask share the partner read and the product; a no-flip walk of one state
+    reads |a|^2 once, and its imaginary parts are 0."""
     zs = [int(z) for z in zs]
     kg = len(zs)
     dev = a.device
     (c, lr, lc), f_hi, gather, srows, scols, shi = _walk(n, f, zs, dev)
-    srows, scols, shi = (torch.from_numpy(t).to(dev) for t in (srows, scols, shi))
+    srows, scols, shi = (to_device(t, dev) for t in (srows, scols, shi))
     diagonal = b is a and f == 0
     av = a.view(-1, 1 << c)
     bv = b.view(-1, 1 << c)
@@ -396,10 +433,10 @@ def pauli_pair_sums(a: torch.Tensor, b: torch.Tensor, n: int, f: int, zs) -> np.
         part = (srows @ t.view(1 << lr, -1)).view(kg, 1 << lc, width)
         part = (part * scols[:, :, None]).sum(dim=1)
         acc.addcmul_(part, shi[h][:, None])
-    out = acc.cpu().numpy()
+    out = to_host(acc)
     if diagonal:
-        return out[:, 0].astype(np.complex128)
-    return out[:, 0] + 1j * out[:, 1]
+        return np.concatenate([out, np.zeros_like(out)], axis=1)
+    return out
 
 
 def expectation_pauli(state: torch.Tensor, n: int, pauli: str) -> float:

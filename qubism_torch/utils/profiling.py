@@ -11,10 +11,15 @@ device) and ``qubism.sample``; on the exact density backend
 ``qubism.density`` (a run) around ``qubism.density.unitary`` (a gate's row
 and column passes, or a run of gates and their channels composed into one
 superoperator and applied in one pass), ``qubism.density.channel`` and
-``qubism.density.readout``; each nested in its caller. Under a running
-``torch.profiler`` a span is a ``record_function`` on the profiler's clock,
-the clock of the device's work in the same trace; under ``--verbose`` its
-host time is summed by name; otherwise it is a shared no-op context.
+``qubism.density.readout``; in the kernel adjoint engine
+(``models/adjoint_engine.py``) ``qubism.adjoint`` (one value+grad call)
+around ``qubism.adjoint.sweep`` (a unit's operands built and its kernels
+launched, forward or reverse), ``qubism.adjoint.head`` (E and lam = H phi)
+and ``qubism.adjoint.contract`` (a unit's gradient walks); each nested in
+its caller. Under a running ``torch.profiler`` a span is a
+``record_function`` on the profiler's clock, the clock of the device's
+work in the same trace; under ``--verbose`` its host time is summed by
+name; otherwise it is a shared no-op context.
 This module imports nothing of the package but its configuration, so that
 any module of it can import this one.
 """
@@ -46,7 +51,9 @@ VERBOSE = False
 #: diagonal in the layered plans kept), ``rho_unitary_passes``,
 #: ``rho_channel_passes`` and ``rho_fused_passes`` (passes over a density
 #: matrix, ``core.density``: a gate's rows or columns, a channel, a composed
-#: run of gates and channels) and ``rho_fused_prims`` (the gates of those runs)
+#: run of gates and channels), ``rho_fused_prims`` (the gates of those runs)
+#: and ``pair_walks`` (walks of a pair of states by
+#: ``ops.measure.pauli_pair_sums``, one a flip mask of a reduction)
 counters: dict[str, int] = {}
 
 #: the counters the --verbose line always reports, and those it reports

@@ -137,6 +137,7 @@ def test_chunked_walks_match_unchunked(monkeypatch):
         want = TE.kernel_adjoint_value_and_grad_fn(ans, terms)(theta)
         with monkeypatch.context() as m:
             m.setattr(TM, "_EXP_CHUNK", 5)
+            m.setattr(TE, "_HEAD_CHUNK", 5)
             m.setattr(TM, "_EXP_COLS", 3)
             got = TE.kernel_adjoint_value_and_grad_fn(ans, terms)(theta)
         close(got, want, 1e-5, 1e-5)
@@ -144,6 +145,7 @@ def test_chunked_walks_match_unchunked(monkeypatch):
 
 def test_diag_head_matches_pauli_head(monkeypatch):
     monkeypatch.setattr(TM, "_EXP_CHUNK", 6)
+    monkeypatch.setattr(TE, "_HEAD_CHUNK", 6)
     n = 8
     rng = np.random.default_rng(4)
     v = (rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)).astype(np.complex64)

@@ -174,8 +174,9 @@ def test_cpu_tensors_never_count_a_launch():
     TK.stage_block(state, TK.stage_block_prepare(((np.eye(2), 0, ladder),), 9, "cpu"), 9)
     TK.shard_butterfly(list(state.view(2, -1)), np.eye(2)[::-1], 8)
     TK.permute(state, (8, 1, 2, 3, 4, 5, 6, 7, 0), 9)
+    TK.pair_sums(state, state, 3, [0, 5], torch.zeros(2, 2, dtype=torch.float64), 9)
     assert TK.launches == {"gate": 0, "diag": 0, "lane": 0, "layer1q": 0, "stage": 0,
-                           "butterfly": 0, "permute": 0}
+                           "butterfly": 0, "permute": 0, "pair": 0}
 
 
 @pytest.mark.parametrize("targets", [(3, 1), (5, 0, 2), (6,)])
